@@ -1,0 +1,495 @@
+"""Batched surface-searchlight engine: closed-form ridge over vertex blocks + scoring.
+
+Port of ``multimodal_decoding_tpu/decoding/searchlight_engine.py``.  For a
+block of B vertices: one gather ``X[:, idx] -> [N, B, K]``, one batched gram
+``[B, K, K]``, batched SPD solves and batched prediction GEMMs; the score
+family is row normalisations plus GEMMs over ``[B, n_test, D]`` predictions.
+
+Null scoring keeps the JAX package's reformulation: a permutation of the
+latent rows only permutes columns of the per-vertex cosine-distance matrix,
+so each shuffle's accuracy is a gather from a rank-count tensor computed
+once per block.
+
+Layouts at the public functions are the JAX package's (``[N, B, K]``
+patches, ``[B, K, D]`` weights, ``[B, M, D]`` predictions), so the tests
+compare like with like.  The block steps are plain functions; PyTorch runs
+them eagerly.
+
+Everything is float32.  The JAX package's TPU selection options wait for
+later PRs and raise here: ``cv_dtype`` (bf16 selection storage, ROADMAP
+A15), the ``"pallas"`` and ``"fused*"`` CV scorers (kernels B3-B5),
+``cv_unroll`` and ``cv_alpha_batch`` (ROADMAP A15).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from multimodal_decoding_tpu_torch.ops import metrics as M
+from multimodal_decoding_tpu_torch.ops.ridge import first_argmax_with_tol, kfold_indices
+from multimodal_decoding_tpu_torch.ops.solvers import spd_solve
+
+CV_SCORERS = ("xla", "strict")
+NULL_GATHER_MODES = ("gather", "onehot", "onehot-bf16")
+
+# DERANGEMENTS_THREE_DIMS of the reference (searchlight.py:35)
+_DERANGEMENTS = ((1, 2, 0), (2, 0, 1))
+
+
+# ---------------------------------------------------------------------------
+# Fit + predict for one vertex block
+# ---------------------------------------------------------------------------
+
+
+def gather_patches(X: torch.Tensor, idx: torch.Tensor, mask=None) -> torch.Tensor:
+    """X [N, V], idx [B, K] -> patches [N, B, K] (masked columns zeroed).
+
+    Zeroing a column excludes that neighbour from the ridge fit exactly (its
+    gram row/column vanish; the regulariser pins its weight to 0), which
+    gives radius-mode neighbourhoods a static shape.
+    """
+    patches = X[:, idx.long()]
+    if mask is not None:
+        patches = patches * mask[None].to(patches.dtype)
+    return patches
+
+
+def _gram(Xg: torch.Tensor) -> torch.Tensor:
+    """[N, B, K] -> [B, K, K] = sum_n X[n, b, :]^T X[n, b, :]."""
+    Xb = Xg.permute(1, 0, 2)  # [B, N, K] view
+    return Xb.mT @ Xb
+
+
+def _cross(Xg: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """[N, B, K], [N, D] -> [B, K, D] = sum_n X[n, b, :]^T Y[n, :]."""
+    n, b, k = Xg.shape
+    return (Xg.reshape(n, b * k).mT @ Y).reshape(b, k, Y.shape[-1])
+
+
+def fit_block(X_train_g: torch.Tensor, Y_train: torch.Tensor, alpha,
+              solver: str = "cholesky") -> torch.Tensor:
+    """Batched closed-form ridge over a vertex block: [N, B, K], [N, D] -> W [B, K, D]."""
+    G = _gram(X_train_g)
+    XtY = _cross(X_train_g, Y_train)
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    return spd_solve(G + alpha * eye, XtY, method=solver)
+
+
+def predict_block(X_query_g: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """X_query_g [M, B, K], W [B, K, D] -> preds [B, M, D]."""
+    return X_query_g.permute(1, 0, 2) @ W
+
+
+# ---------------------------------------------------------------------------
+# Per-vertex CV alpha sweep
+# ---------------------------------------------------------------------------
+
+
+def fit_block_cv(
+    X_train_g: torch.Tensor,
+    Y_train: torch.Tensor,
+    alphas: torch.Tensor,
+    n_splits: int = 5,
+    solver: str = "cholesky",
+    cv_solver: str | None = None,
+    cv_scorer: str = "xla",
+    cv_dtype=None,
+    cv_unroll: bool = False,
+    cv_alpha_batch: bool = False,
+):
+    """Per-vertex alpha selection via K-fold CV (sklearn-split parity).
+
+    Returns ``(W [B, K, D]`` refit at each vertex's best alpha,
+    ``best_alpha [B]``, ``cv_scores [B, n_alphas])``.  Fold grams are the
+    full gram minus the validation rows' gram, so the 5-fold sweep costs ~2
+    gram passes instead of 5; contiguous folds are slices, not gathers.
+
+    ``cv_solver`` applies only to the alpha-selection solves (the refit uses
+    ``solver``).  ``cv_scorer``: "xla" is the scale-invariant fold scorer
+    (unnormalised predictions against unit latent rows); "strict"
+    materialises cosine-distance matrices like the final metrics.
+    """
+    if cv_dtype is not None:
+        raise ValueError("cv_dtype (bf16 selection storage) is not ported yet "
+                         "(ROADMAP A15); the port's selection path is float32")
+    if cv_scorer not in CV_SCORERS:
+        raise ValueError(f"cv_scorer {cv_scorer!r} is not ported yet (its streamed-count "
+                         f"kernels are ROADMAP B3-B5); use one of {CV_SCORERS}")
+    if cv_unroll or cv_alpha_batch:
+        raise ValueError("cv_unroll / cv_alpha_batch are not ported yet (ROADMAP A15)")
+    cv_solver = solver if cv_solver is None else cv_solver
+    n = X_train_g.shape[0]
+    k = X_train_g.shape[-1]
+    folds = kfold_indices(n, n_splits)
+
+    G_full = _gram(X_train_g)
+    XtY_full = _cross(X_train_g, Y_train)
+    eye = torch.eye(k, dtype=G_full.dtype, device=G_full.device)
+
+    def fold_scores(val_idx: np.ndarray) -> torch.Tensor:
+        lo, hi = int(val_idx[0]), int(val_idx[-1]) + 1  # KFold folds are contiguous
+        Xv, Yv = X_train_g[lo:hi], Y_train[lo:hi]
+        Yv_n = Yv / torch.linalg.vector_norm(Yv, dim=-1, keepdim=True)
+        G_tr = G_full - _gram(Xv)
+        XtY_tr = XtY_full - _cross(Xv, Yv)
+        out = []
+        for a in range(alphas.shape[0]):
+            W = spd_solve(G_tr + alphas[a] * eye, XtY_tr, method=cv_solver)
+            preds = predict_block(Xv, W)  # [B, nv, D]
+            if cv_scorer == "xla":
+                out.append(M.pairwise_acc_scale_invariant(preds, Yv_n))
+            else:
+                out.append(M.pairwise_acc_from_dist(M.cosine_distances(preds, Yv)))
+        return torch.stack(out)  # [A, B]
+
+    # the fold mean as XLA computes it: a sum times the reciprocal count
+    scores = M.count_ratio(torch.stack([fold_scores(v) for _, v in folds]).sum(dim=0),
+                           len(folds))  # [A, B]
+    best = first_argmax_with_tol(scores, axis=0)  # [B]
+    best_alpha = alphas[best]
+    W = spd_solve(G_full + best_alpha[:, None, None] * eye, XtY_full, method=solver)
+    return W, best_alpha, scores.T
+
+
+# ---------------------------------------------------------------------------
+# Scoring
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TestLayout:
+    """Static index layout of the test set.
+
+    ``caption_sel``/``image_sel``: positions in the prediction rows (X
+    order); the latent rows follow the same stim_types array.
+    """
+
+    caption_sel: tuple
+    image_sel: tuple
+
+    @staticmethod
+    def from_stim_types(stim_types, caption="caption", image="image") -> "TestLayout":
+        st = np.asarray(stim_types)
+        return TestLayout(
+            caption_sel=tuple(np.where(st == caption)[0].tolist()),
+            image_sel=tuple(np.where(st == image)[0].tolist()),
+        )
+
+
+def _acc(dist):
+    return M.pairwise_acc_from_dist(dist)
+
+
+def _sel(layout_sel, device) -> torch.Tensor:
+    return torch.as_tensor(layout_sel, dtype=torch.long, device=device)
+
+
+def score_block(
+    preds_test: torch.Tensor,
+    preds_imag: torch.Tensor,
+    Y_test: torch.Tensor,
+    Y_imag: torch.Tensor,
+    layout: TestLayout,
+    comp_cross_decoding_scores: bool = True,
+) -> dict:
+    """Full main score family for a vertex block -> {metric: [B]}.
+
+    calc_all_pairwise_accuracy_scores(standardize_predictions=True) plus
+    the *_no_std imagery variants (reference searchlight.py:81-88).
+    """
+    cap = _sel(layout.caption_sel, preds_test.device)
+    img = _sel(layout.image_sel, preds_test.device)
+
+    P_cap = M.standardize(preds_test[:, cap, :])
+    P_img = M.standardize(preds_test[:, img, :])
+    L_cap = Y_test[cap]
+    L_img = Y_test[img]
+
+    out = {
+        M.ACC_CAPTIONS: _acc(M.cosine_distances(P_cap, L_cap)),
+        M.ACC_IMAGES: _acc(M.cosine_distances(P_img, L_img)),
+    }
+    if comp_cross_decoding_scores:
+        out[M.ACC_CROSS_CAPTIONS_TO_IMAGES] = _acc(M.cosine_distances(P_cap, L_img))
+        out[M.ACC_CROSS_IMAGES_TO_CAPTIONS] = _acc(M.cosine_distances(P_img, L_cap))
+
+    P_im_std = M.standardize(preds_imag)
+    L_whole = torch.cat((Y_imag, Y_test), dim=0)
+    out[M.ACC_IMAGERY] = _acc(M.cosine_distances(P_im_std, Y_imag))
+    out[M.ACC_IMAGERY_WHOLE_TEST] = _acc(M.cosine_distances(P_im_std, L_whole))
+    out[M.ACC_IMAGERY + "_no_std"] = _acc(M.cosine_distances(preds_imag, Y_imag))
+    out[M.ACC_IMAGERY_WHOLE_TEST + "_no_std"] = _acc(M.cosine_distances(preds_imag, L_whole))
+    return out
+
+
+# number of metric families null_score_block emits: captions, images, and
+# the two imagery variants each with a _no_std twin.  The runner sizes its
+# flush budget from this.
+N_NULL_METRICS = 6
+
+
+def _rank_counts(dist: torch.Tensor) -> torch.Tensor:
+    """C[..., i, c] = #{c': dist[..., i, c] < dist[..., i, c']}.
+
+    Any column-permuted accuracy is the mean of C at the permuted diagonal.
+    """
+    return torch.sum(dist[..., :, None] < dist[..., None, :], dim=-1)
+
+
+def _gather_perm_diag(C: torch.Tensor, perm: torch.Tensor,
+                      mode: str = "gather") -> torch.Tensor:
+    """Permuted-diagonal pick: out[b, p, i] = C[b, i, perm[(b,) p, i]].
+
+    For the shared 2-D [P, n] shuffles, ``mode`` picks the formulation:
+    "gather" (advanced indexing), "onehot" (one-hot @ counts, float32,
+    exact) or "onehot-bf16" (bf16 operands; exact while rank counts stay
+    below 256, so m > 256 falls back to "onehot").  Per-(b, p, i) picks
+    (perm.ndim == 3) always gather.
+    """
+    if mode not in NULL_GATHER_MODES:
+        raise ValueError(f"unknown null-gather mode {mode!r} "
+                         "(expected 'gather', 'onehot', or 'onehot-bf16')")
+    perm = perm.long()
+    if perm.ndim == 2 and mode != "gather":
+        if mode == "onehot-bf16" and C.shape[-1] > 256:
+            # bf16 holds integers exactly only up to 256; counts reach m-1
+            mode = "onehot"
+        dt = torch.bfloat16 if mode == "onehot-bf16" else torch.float32
+        E = torch.eye(C.shape[-1], dtype=dt, device=C.device)[perm]  # [P, n, m]
+        # each output sums one nonzero product, so the bf16 result is exact
+        return torch.einsum("bim,pim->bpi", C.to(dt), E).to(torch.float32)
+    if perm.ndim == 2:
+        perm = perm[None].expand((C.shape[0],) + tuple(perm.shape))
+    b_idx = torch.arange(C.shape[0], device=C.device)[:, None, None]
+    i_idx = torch.arange(C.shape[1], device=C.device)[None, None, :]
+    return C[b_idx, i_idx, perm]
+
+
+def _derangement_idx(imagery_derangements: torch.Tensor) -> torch.Tensor:
+    """[B, P] choice of one of the two 3-element derangements -> [B, P, 3]."""
+    der = torch.as_tensor(_DERANGEMENTS, dtype=torch.long,
+                          device=imagery_derangements.device)
+    return der[imagery_derangements.long()]
+
+
+def _local_shuffles(shuffles: torch.Tensor, sel: torch.Tensor, n_test: int) -> torch.Tensor:
+    """Shuffles [P, n_test] restricted to the rows ``sel`` as local indices [P, n]."""
+    inv = torch.zeros((n_test,), dtype=torch.long, device=shuffles.device)
+    inv[sel] = torch.arange(len(sel), device=shuffles.device)
+    return inv[shuffles.long()[:, sel]]
+
+
+def _check_three_imagery(preds_imag: torch.Tensor) -> int:
+    n_imag = preds_imag.shape[-2]
+    if n_imag != 3:
+        raise ValueError(
+            "null scoring uses the reference's 3-element imagery derangements "
+            f"(searchlight.py:35); got {n_imag} imagery stimuli"
+        )
+    return n_imag
+
+
+def null_score_block(
+    preds_test: torch.Tensor,
+    preds_imag: torch.Tensor,
+    Y_test: torch.Tensor,
+    Y_imag: torch.Tensor,
+    layout: TestLayout,
+    shuffles: torch.Tensor,
+    imagery_derangements: torch.Tensor,
+    null_gather: str = "gather",
+) -> dict:
+    """Null-distribution score family for every shuffle -> {metric: [B, P]}.
+
+    ``shuffles`` [P, n_test] permutes test latent rows within modality;
+    ``imagery_derangements`` [B, P] selects one of the two 3-element
+    derangements per (vertex, shuffle) (reference searchlight.py:61-79).
+    """
+    n_imag = _check_three_imagery(preds_imag)
+    device = preds_test.device
+    cap = _sel(layout.caption_sel, device)
+    img = _sel(layout.image_sel, device)
+    der_idx = _derangement_idx(imagery_derangements)
+
+    def modality_score(P_std, L, sel):
+        C = _rank_counts(M.cosine_distances(P_std, L))
+        local = _local_shuffles(shuffles, sel, Y_test.shape[0])
+        n = len(sel)
+        return M.count_ratio(torch.sum(_gather_perm_diag(C, local, null_gather), dim=-1), n * n - n)
+
+    out = {
+        M.ACC_CAPTIONS: modality_score(M.standardize(preds_test[:, cap, :]), Y_test[cap], cap),
+        M.ACC_IMAGES: modality_score(M.standardize(preds_test[:, img, :]), Y_test[img], img),
+    }
+    L_whole = torch.cat((Y_imag, Y_test), dim=0)
+    for suffix, P_im in (("", M.standardize(preds_imag)), ("_no_std", preds_imag)):
+        C_im = _rank_counts(M.cosine_distances(P_im, Y_imag))  # [B, 3, 3]
+        g = _gather_perm_diag(C_im, der_idx, null_gather)
+        out[M.ACC_IMAGERY + suffix] = M.count_ratio(torch.sum(g, dim=-1), n_imag * n_imag - n_imag)
+        C_iw = _rank_counts(M.cosine_distances(P_im, L_whole))  # [B, 3, 3+n_test]
+        g = _gather_perm_diag(C_iw, der_idx, null_gather)
+        m = L_whole.shape[0]
+        out[M.ACC_IMAGERY_WHOLE_TEST + suffix] = M.count_ratio(torch.sum(g, dim=-1), n_imag * m - n_imag)
+    return out
+
+
+def score_and_null_block(
+    preds_test: torch.Tensor,
+    preds_imag: torch.Tensor,
+    Y_test: torch.Tensor,
+    Y_imag: torch.Tensor,
+    layout: TestLayout,
+    shuffles: torch.Tensor,
+    imagery_derangements: torch.Tensor,
+    comp_cross_decoding_scores: bool = True,
+    null_gather: str = "gather",
+) -> tuple:
+    """Main + null score families sharing the distance/rank-count tensors.
+
+    The main accuracy is the rank-count diagonal (the identity-permutation
+    gather), so one distance matrix and one C per metric family serve both
+    outputs, with the same comparisons as score_block/null_score_block.
+    """
+    n_imag = _check_three_imagery(preds_imag)
+    device = preds_test.device
+    cap = _sel(layout.caption_sel, device)
+    img = _sel(layout.image_sel, device)
+    der_idx = _derangement_idx(imagery_derangements)
+
+    def main_acc_from_counts(C, n, m):
+        diag = torch.diagonal(C, dim1=-2, dim2=-1)
+        return M.count_ratio(torch.sum(diag, dim=-1), n * m - min(n, m))
+
+    P_cap = M.standardize(preds_test[:, cap, :])
+    P_img = M.standardize(preds_test[:, img, :])
+    L_cap = Y_test[cap]
+    L_img = Y_test[img]
+
+    main, null = {}, {}
+
+    def modality(P_std, L, sel, name):
+        n = len(sel)
+        C = _rank_counts(M.cosine_distances(P_std, L))
+        main[name] = main_acc_from_counts(C, n, n)
+        local = _local_shuffles(shuffles, sel, Y_test.shape[0])
+        null[name] = M.count_ratio(torch.sum(_gather_perm_diag(C, local, null_gather), dim=-1), n * n - n)
+
+    modality(P_cap, L_cap, cap, M.ACC_CAPTIONS)
+    modality(P_img, L_img, img, M.ACC_IMAGES)
+    if comp_cross_decoding_scores:
+        main[M.ACC_CROSS_CAPTIONS_TO_IMAGES] = _acc(M.cosine_distances(P_cap, L_img))
+        main[M.ACC_CROSS_IMAGES_TO_CAPTIONS] = _acc(M.cosine_distances(P_img, L_cap))
+
+    L_whole = torch.cat((Y_imag, Y_test), dim=0)
+    m_whole = L_whole.shape[0]
+    for suffix, P_im in (("", M.standardize(preds_imag)), ("_no_std", preds_imag)):
+        C_im = _rank_counts(M.cosine_distances(P_im, Y_imag))
+        main[M.ACC_IMAGERY + suffix] = main_acc_from_counts(C_im, n_imag, n_imag)
+        null[M.ACC_IMAGERY + suffix] = M.count_ratio(torch.sum(
+            _gather_perm_diag(C_im, der_idx, null_gather), dim=-1
+        ), n_imag * n_imag - n_imag)
+
+        C_iw = _rank_counts(M.cosine_distances(P_im, L_whole))
+        main[M.ACC_IMAGERY_WHOLE_TEST + suffix] = main_acc_from_counts(C_iw, n_imag, m_whole)
+        null[M.ACC_IMAGERY_WHOLE_TEST + suffix] = M.count_ratio(torch.sum(
+            _gather_perm_diag(C_iw, der_idx, null_gather), dim=-1
+        ), n_imag * m_whole - n_imag)
+
+    # key order parity with score_block/null_score_block outputs
+    main_order = [M.ACC_CAPTIONS, M.ACC_IMAGES]
+    if comp_cross_decoding_scores:
+        main_order += [M.ACC_CROSS_CAPTIONS_TO_IMAGES, M.ACC_CROSS_IMAGES_TO_CAPTIONS]
+    main_order += [M.ACC_IMAGERY, M.ACC_IMAGERY_WHOLE_TEST,
+                   M.ACC_IMAGERY + "_no_std", M.ACC_IMAGERY_WHOLE_TEST + "_no_std"]
+    null_order = [M.ACC_CAPTIONS, M.ACC_IMAGES,
+                  M.ACC_IMAGERY, M.ACC_IMAGERY_WHOLE_TEST,
+                  M.ACC_IMAGERY + "_no_std", M.ACC_IMAGERY_WHOLE_TEST + "_no_std"]
+    return ({k: main[k] for k in main_order}, {k: null[k] for k in null_order})
+
+
+# ---------------------------------------------------------------------------
+# Block steps
+# ---------------------------------------------------------------------------
+
+
+def _split_patches(X_all, idx, mask, n_train, n_test):
+    patches = gather_patches(X_all, idx, mask)  # [N_all, B, K]
+    return patches[:n_train], patches[n_train:n_train + n_test], patches[n_train + n_test:]
+
+
+def searchlight_block(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, *,
+                      layout: TestLayout, n_train: int, n_test: int,
+                      comp_cross: bool = True, solver: str = "cholesky"):
+    """One block step: gather -> fit -> predict -> score.  Returns {metric: [B]}.
+
+    X_all [N_all, V] = concat(train, test, imagery) rows; idx [B, K];
+    mask [B, K] or None.
+    """
+    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+    W = fit_block(Xtr, Y_train, alpha, solver=solver)
+    return score_block(predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag,
+                       layout, comp_cross_decoding_scores=comp_cross)
+
+
+def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
+                                shuffles, imagery_derangements, *,
+                                layout: TestLayout, n_train: int, n_test: int,
+                                comp_cross: bool = True, solver: str = "cholesky",
+                                null_gather: str = "gather"):
+    """Block step that also emits the per-shuffle null score family."""
+    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+    W = fit_block(Xtr, Y_train, alpha, solver=solver)
+    return score_and_null_block(
+        predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag, layout, shuffles,
+        imagery_derangements, comp_cross_decoding_scores=comp_cross,
+        null_gather=null_gather,
+    )
+
+
+def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas,
+                                   shuffles, imagery_derangements, *,
+                                   layout: TestLayout, n_train: int, n_test: int,
+                                   n_splits: int = 5, comp_cross: bool = True,
+                                   solver: str = "cholesky", cv_solver: str | None = None,
+                                   cv_scorer: str = "xla", cv_dtype=None,
+                                   cv_unroll: bool = False, cv_alpha_batch: bool = False,
+                                   null_gather: str = "gather"):
+    """CV block step that also emits the per-shuffle null score family.
+
+    The main path: each vertex's null scores come from the decoder refit at
+    that vertex's CV-selected alpha.
+    """
+    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, solver=solver,
+                                    cv_solver=cv_solver, cv_scorer=cv_scorer,
+                                    cv_dtype=cv_dtype, cv_unroll=cv_unroll,
+                                    cv_alpha_batch=cv_alpha_batch)
+    main, null = score_and_null_block(
+        predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag, layout, shuffles,
+        imagery_derangements, comp_cross_decoding_scores=comp_cross,
+        null_gather=null_gather,
+    )
+    main = dict(main)
+    main["best_alpha"] = best_alpha
+    return main, null
+
+
+def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
+                         layout: TestLayout, n_train: int, n_test: int,
+                         n_splits: int = 5, comp_cross: bool = True,
+                         solver: str = "cholesky", cv_solver: str | None = None,
+                         cv_scorer: str = "xla", cv_dtype=None,
+                         cv_unroll: bool = False, cv_alpha_batch: bool = False):
+    """Block step with per-vertex CV alpha selection."""
+    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, solver=solver,
+                                    cv_solver=cv_solver, cv_scorer=cv_scorer,
+                                    cv_dtype=cv_dtype, cv_unroll=cv_unroll,
+                                    cv_alpha_batch=cv_alpha_batch)
+    scores = dict(score_block(predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag,
+                              layout, comp_cross_decoding_scores=comp_cross))
+    scores["best_alpha"] = best_alpha
+    return scores

@@ -1,0 +1,188 @@
+"""Batched SPD inverse on Hopper: the hand-written panel kernel and its driver.
+
+Counterpart of ``multimodal_decoding_tpu/ops/pallas_solvers.py``.
+
+* ``chol_inv_panel`` replaces the Pallas kernel of the same name: for a batch
+  ``[B, PB, PB]`` of float32 SPD blocks it returns ``L^-1`` with
+  ``L = chol(A)`` lower.  On a CUDA tensor it launches the CUDA kernel in
+  ``csrc/chol_inv_panel.cu`` (built with ``nvcc`` at first use, loaded with
+  ``ctypes``); on a CPU tensor it runs ``chol_inv_panel_plain``.  There is
+  no fallback from one to the other.
+* ``blocked_spd_inverse`` is the torch driver around the same kernel: a
+  right-looking blocked Cholesky (``PANEL = 64``) whose diagonal panels go
+  through ``chol_inv_panel``, with GEMM trailing updates, blocked forward
+  substitution and ``inv = M^T M``.  K is padded to a panel multiple with an
+  identity block, which is exactly identity in the inverse.
+
+``launches`` counts the CUDA kernel's launches (the CPU path does not count),
+so a run can show that its main path went through the kernel;
+``reset_launches`` sets it to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+PANEL = 64
+MAX_PANEL = 192  # the kernel keeps a whole block in shared memory
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc", "chol_inv_panel.cu")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "_build")
+
+launches = 0
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "csrc/chol_inv_panel.cu")
+
+
+def build(force: bool = False, verbose: bool = False) -> str:
+    """Compile the kernel into ``BUILD_DIR`` (once per source content).
+
+    Returns the path of the shared library.  The file name carries a hash of
+    the source, so an edited source is rebuilt and never confused with an
+    older library; the library is written to a temporary name and renamed
+    into place, so concurrent builders never see a partial file.  ``force``
+    rebuilds even when the library exists; ``verbose`` prints what
+    ``ptxas -v`` reports (registers, shared memory, spills).
+    """
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    lib_path = os.path.join(BUILD_DIR, f"libchol_inv_panel_{digest}.so")
+    if os.path.isfile(lib_path) and not force:
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        if verbose:
+            print(proc.stderr, flush=True)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib_path
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.chol_inv_panel_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def chol_inv_panel_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``L^-1`` of ``chol(a)`` by a triangular solve vs I."""
+    L = torch.linalg.cholesky(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def chol_inv_panel(a: torch.Tensor) -> torch.Tensor:
+    """``[B, PB, PB]`` float32 SPD blocks -> ``L^-1`` of their lower Cholesky factor.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes contiguous float32 input with ``PB <= 192`` and raises otherwise.
+    """
+    global launches
+    if a.dim() != 3 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"chol_inv_panel expects [B, PB, PB]; got {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return chol_inv_panel_plain(a)
+    if a.device.type != "cuda":
+        raise ValueError(f"chol_inv_panel runs on cuda or cpu, not {a.device}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"chol_inv_panel kernel takes float32; got {a.dtype}")
+    if not a.is_contiguous():
+        raise ValueError("chol_inv_panel kernel takes a contiguous tensor")
+    b, pb = a.shape[0], a.shape[-1]
+    if pb > MAX_PANEL:
+        raise ValueError(f"chol_inv_panel kernel takes PB <= {MAX_PANEL}; got {pb}")
+    out = torch.empty_like(a)
+    if b == 0 or pb == 0:
+        return out
+    lib = _load()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        rc = lib.chol_inv_panel_launch(a.data_ptr(), out.data_ptr(), b, pb, stream)
+    if rc != 0:
+        raise RuntimeError(f"chol_inv_panel launch failed: cudaError {rc}")
+    launches += 1
+    return out
+
+
+def blocked_spd_inverse(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
+    """Batched SPD inverse ``[B, K, K] -> A^-1`` (port of the Pallas driver).
+
+    The diagonal panels are factorised and inverted by ``chol_inv_panel``;
+    everything else is batched GEMMs.
+    """
+    b, k = A.shape[0], A.shape[-1]
+    k_pad = ((k + panel - 1) // panel) * panel
+    work = A.to(torch.float32)
+    if k_pad != k:
+        pad = k_pad - k
+        work = torch.nn.functional.pad(work, (0, pad, 0, pad))
+        idx = torch.arange(k, k_pad, device=A.device)
+        work[:, idx, idx] = 1.0
+    n_panels = k_pad // panel
+    r = torch.arange(k_pad, device=A.device)
+
+    # blocked right-looking Cholesky: L column-panels + diagonal-panel inverses
+    l_cols, d_invs = [], []
+    for p in range(n_panels):
+        lo = p * panel
+        linv_pp = chol_inv_panel(work[:, lo:lo + panel, lo:lo + panel].contiguous())
+        # L[:, lo:, lo:lo+PB] = A_work[:, lo:, lo:lo+PB] @ L_pp^-T, rows >= lo
+        l_col = work[:, :, lo:lo + panel] @ linv_pp.mT
+        l_col = torch.where((r >= lo)[None, :, None], l_col, 0.0)
+        # trailing update, only on indices past this panel
+        trail = ((r >= lo + panel)[:, None] & (r >= lo + panel)[None, :]).to(work.dtype)
+        work = work - (l_col @ l_col.mT) * trail
+        l_cols.append(l_col)
+        d_invs.append(linv_pp)
+    L = torch.cat(l_cols, dim=-1)
+
+    # blocked forward substitution: row-panel p of L^-1 is
+    # M[p] = D_inv_p @ (I_p - L[p, :lo] @ M[:lo])
+    M = torch.zeros((b, k_pad, k_pad), dtype=torch.float32, device=A.device)
+    eye = torch.eye(k_pad, dtype=torch.float32, device=A.device)
+    for p in range(n_panels):
+        lo = p * panel
+        l_row = torch.where((r < lo)[None, None, :], L[:, lo:lo + panel, :], 0.0)
+        rhs = eye[lo:lo + panel][None] - l_row @ M
+        M[:, lo:lo + panel, :] = d_invs[p] @ rhs
+    inv = M.mT @ M
+    return inv[:, :k, :k]

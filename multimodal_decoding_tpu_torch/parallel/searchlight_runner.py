@@ -1,0 +1,277 @@
+"""Single-device searchlight runner: vertex blocks -> score maps.
+
+Port of ``multimodal_decoding_tpu/parallel/searchlight_runner.py`` for one
+GPU: the padded adjacency is cut into blocks of B vertices, each block runs
+one block step of ``decoding/searchlight_engine`` on the device, and the
+per-block score vectors come back to host numpy every few blocks.  Meshes,
+multi-host runs and streamed ingestion are ROADMAP A11.
+
+Imagery derangements: the JAX runner draws them with ``jax.random``.  This
+runner draws block ``b``'s ``[B, P]`` choices from the numpy stream
+``np.random.default_rng([null_seed, b]).integers(0, 2, (B, P))``, or takes
+them from ``imagery_derangements`` (one row per padded vertex), so a test
+can feed both runners the same choices.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from multimodal_decoding_tpu_torch.decoding.searchlight_engine import (
+    N_NULL_METRICS,
+    TestLayout,
+    searchlight_block,
+    searchlight_block_cv,
+    searchlight_block_cv_with_null,
+    searchlight_block_with_null,
+)
+from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
+
+
+def pad_to_multiple(arr: np.ndarray, multiple: int):
+    """Pad axis 0 up to a multiple by repeating the first row; returns
+    (padded, original_length).  Padded vertices recompute vertex 0 and are
+    dropped on the host."""
+    n = arr.shape[0]
+    pad_n = -n % multiple
+    if pad_n == 0:
+        return arr, n
+    return np.concatenate([arr, np.repeat(arr[:1], pad_n, axis=0)]), n
+
+
+def _auto_block_size(n_rows: int, k: int, budget_bytes: int = 2 << 30) -> int:
+    """Pick a vertex block size so the gathered patch tensor fits the budget."""
+    return int(min(max(1, budget_bytes // (n_rows * k * 4)), 4096))
+
+
+# Device memory allowed for not-yet-copied block outputs (null mode emits
+# {metric: [B, P]} per block).
+_FLUSH_BUDGET_BYTES = 256 << 20
+
+
+def _flush_cadence(block_size: int, n_perms: int | None,
+                   budget_bytes: int = _FLUSH_BUDGET_BYTES) -> int:
+    """How many blocks' outputs may stay on the device before a copy to host.
+
+    Main-mode outputs are ~KB per block, so the cadence only keeps the host
+    from waiting on the device after every block (8).  Null-mode outputs are
+    ``block_size * n_perms * 4`` bytes per metric per block; the cadence
+    keeps pending outputs under ``budget_bytes``.
+    """
+    if not n_perms:
+        return 8
+    per_block = block_size * n_perms * 4 * N_NULL_METRICS
+    return max(1, min(8, budget_bytes // max(per_block, 1)))
+
+
+def _to_host(block: dict) -> dict:
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in block.items()}
+
+
+def _materialize_pending(lists: list[list], n_hosted: int) -> int:
+    """Copy every not-yet-hosted block dict in each list to host numpy.
+
+    ``lists`` are parallel per-block result lists (main, null); entries at
+    index >= n_hosted are device dicts.  Returns the new hosted count.
+    """
+    n = max((len(lst) for lst in lists), default=0)
+    for lst in lists:
+        for i in range(min(n_hosted, len(lst)), len(lst)):
+            lst[i] = _to_host(lst[i])
+    return n
+
+
+def draw_imagery_derangements(null_seed: int, block: int, block_size: int,
+                              n_perms: int) -> np.ndarray:
+    """Block ``block``'s [B, P] imagery-derangement choices (0 or 1)."""
+    return np.random.default_rng([null_seed, block]).integers(
+        0, 2, (block_size, n_perms)).astype(np.int32)
+
+
+def run_searchlight(
+    X_train: np.ndarray,
+    X_test: np.ndarray,
+    X_imag: np.ndarray,
+    Y_train: np.ndarray,
+    Y_test: np.ndarray,
+    Y_imag: np.ndarray,
+    adjacency: np.ndarray,
+    stim_types_test,
+    alpha: float | None = 1.0,
+    alphas_cv=None,
+    adjacency_mask: np.ndarray | None = None,
+    shuffles: np.ndarray | None = None,
+    null_seed: int = 0,
+    imagery_derangements: np.ndarray | None = None,
+    block_size: int | None = None,
+    device=None,
+    cv_solver: str | None = None,
+    cv_scorer: str = "xla",
+    cv_dtype=None,
+    null_gather: str | None = None,
+    progress: bool = True,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 64,
+    resume: bool = True,
+):
+    """Run the full searchlight on one device.
+
+    Returns ``(scores, aux)``: ``scores`` is {metric: [V] float32}; ``aux``
+    carries ``elapsed_s``, ``vertices_per_sec`` (timed on the host after the
+    device finished), ``block_size``, ``n_blocks``, and optionally
+    ``null_scores`` {metric: [V, P]}, per-vertex ``best_alpha`` (CV mode) and
+    ``resumed_at_block``.
+
+    X_* are the standardised betas (NaN columns dropped), ``adjacency`` the
+    [V, K] neighbour-index matrix, ``shuffles`` the [P, n_test] null
+    permutations.  ``device`` defaults to ``cuda`` and raises without a GPU.
+    """
+    device = resolve_device(device)
+    layout = TestLayout.from_stim_types(stim_types_test)
+    n_train, n_test = len(X_train), len(X_test)
+    X_all = np.concatenate([X_train, X_test, X_imag]).astype(np.float32)
+    n_rows = X_all.shape[0]
+    v_total, k = adjacency.shape
+
+    if block_size is None:
+        block_size = _auto_block_size(n_rows, k)
+
+    idx_padded, v_orig = pad_to_multiple(np.asarray(adjacency, dtype=np.int32), block_size)
+    mask_padded = None
+    if adjacency_mask is not None:
+        mask_padded, _ = pad_to_multiple(np.asarray(adjacency_mask), block_size)
+
+    def to_dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    X_all_d = to_dev(X_all, torch.float32)
+    Y_train_d = to_dev(Y_train, torch.float32)
+    Y_test_d = to_dev(Y_test, torch.float32)
+    Y_imag_d = to_dev(Y_imag, torch.float32)
+    alphas_d = to_dev(alphas_cv, torch.float32) if alphas_cv is not None else None
+
+    use_null = shuffles is not None
+    use_cv = alphas_cv is not None
+    n_blocks = len(idx_padded) // block_size
+    n_perms = len(shuffles) if use_null else None
+    if use_null:
+        shuffles_d = to_dev(shuffles, torch.int64)
+        if null_gather is None:
+            from multimodal_decoding_tpu_torch.decoding.searchlight import (
+                default_null_gather,
+            )
+
+            null_gather = default_null_gather()
+        if imagery_derangements is not None and (
+                imagery_derangements.shape != (n_blocks * block_size, n_perms)):
+            raise ValueError(
+                f"imagery_derangements must be [{n_blocks * block_size}, {n_perms}] "
+                f"(padded vertices x shuffles); got {imagery_derangements.shape}")
+
+    results: list[dict] = []
+    null_results: list[dict] = []
+    flush_every = _flush_cadence(block_size, n_perms)
+    n_hosted = 0  # results[:n_hosted] (and null_results[:n_hosted]) are host numpy
+
+    # block-granular checkpointing: a killed run loses at most
+    # ``checkpoint_every`` blocks
+    ckpt_done = -1
+    if checkpoint_path is not None and os.path.isfile(checkpoint_path):
+        if not resume:
+            # overwrite semantics: start from scratch; resuming a stale
+            # checkpoint would also inflate vertices_per_sec
+            os.remove(checkpoint_path)
+        else:
+            ck = np.load(checkpoint_path, allow_pickle=True)
+            ckpt_done = int(ck["done_blocks"])
+            results = list(ck["results"])
+            null_results = list(ck["null_results"])
+            n_hosted = len(results)
+            print(f"resuming searchlight from block {ckpt_done + 1}/{n_blocks}")
+
+    def _save_ckpt(done):
+        nonlocal n_hosted
+        if checkpoint_path is None:
+            return
+        n_hosted = _materialize_pending([results, null_results], n_hosted)
+        os.makedirs(os.path.dirname(checkpoint_path) or ".", exist_ok=True)
+        tmp = checkpoint_path + ".tmp.npz"
+        np.savez(
+            tmp.removesuffix(".npz"),
+            done_blocks=done,
+            results=np.array(results, dtype=object),
+            null_results=np.array(null_results, dtype=object),
+        )
+        os.replace(tmp, checkpoint_path)
+
+    common = dict(layout=layout, n_train=n_train, n_test=n_test)
+    cv_kw = dict(cv_solver=cv_solver, cv_scorer=cv_scorer, cv_dtype=cv_dtype)
+    t0 = time.time()
+    for b in range(n_blocks):
+        if b <= ckpt_done:
+            continue
+        sl = slice(b * block_size, (b + 1) * block_size)
+        idx_b = to_dev(idx_padded[sl], torch.int64)
+        mask_b = to_dev(mask_padded[sl], torch.bool) if mask_padded is not None else None
+        if use_null:
+            der = (imagery_derangements[sl] if imagery_derangements is not None
+                   else draw_imagery_derangements(null_seed, b, block_size, n_perms))
+            der_d = to_dev(der, torch.int64)
+        if use_cv and use_null:
+            main, null = searchlight_block_cv_with_null(
+                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
+                shuffles_d, der_d, null_gather=null_gather, **common, **cv_kw)
+            results.append(main)
+            null_results.append(null)
+        elif use_cv:
+            results.append(searchlight_block_cv(
+                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
+                **common, **cv_kw))
+        elif use_null:
+            main, null = searchlight_block_with_null(
+                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha,
+                shuffles_d, der_d, null_gather=null_gather, **common)
+            results.append(main)
+            null_results.append(null)
+        else:
+            results.append(searchlight_block(
+                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha, **common))
+        if (b + 1) % flush_every == 0:
+            n_hosted = _materialize_pending([results, null_results], n_hosted)
+        if checkpoint_every and (b + 1) % checkpoint_every == 0:
+            _save_ckpt(b)
+        if progress and (b % 10 == 0 or b == n_blocks - 1):
+            print(f"searchlight block {b + 1}/{n_blocks}", flush=True)
+
+    _materialize_pending([results, null_results], n_hosted)
+    synchronize(device)
+
+    def collect(blocks):
+        return {m: np.concatenate([blk[m] for blk in blocks])[:v_orig]
+                for m in blocks[0].keys()}
+
+    scores = collect(results)
+    elapsed = time.time() - t0
+    # rate over the vertices THIS call computed: a resumed run must not
+    # claim the checkpointed blocks' work
+    done_before = min((ckpt_done + 1) * block_size, v_orig)
+    aux = {
+        "elapsed_s": elapsed,
+        "vertices_per_sec": (v_orig - done_before) / elapsed,
+        "block_size": block_size,
+        "n_blocks": n_blocks,
+    }
+    if ckpt_done >= 0:
+        aux["resumed_at_block"] = ckpt_done + 1
+    if use_null:
+        aux["null_scores"] = collect(null_results)
+    if use_cv:
+        aux["best_alpha"] = scores.pop("best_alpha")
+    if checkpoint_path is not None and os.path.isfile(checkpoint_path):
+        os.remove(checkpoint_path)
+    return scores, aux

@@ -1,0 +1,105 @@
+"""The port stands alone: no JAX, no JAX package, no silent CPU fallback."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import multimodal_decoding_tpu_torch as port
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "multimodal_decoding_tpu")
+
+
+def _port_modules():
+    names = [port.__name__]
+    for info in pkgutil.walk_packages(port.__path__, prefix=port.__name__ + "."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, dirs, fs in os.walk(os.path.dirname(port.__file__)):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build output, not source
+        files += [os.path.join(base, f) for f in fs if f.endswith(".py")]
+    return sorted(files)
+
+
+def test_every_port_module_is_found():
+    mods = _port_modules()
+    for expected in ("device", "interop", "config", "ops.hopper_solvers", "ops.solvers",
+                     "decoding.searchlight_engine", "parallel.searchlight_runner",
+                     "cli.run_searchlight", "io.surface", "data.synthetic"):
+        assert f"{port.__name__}.{expected}" in mods
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_import_of_jax_or_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            tops = [(node.module or "").split(".")[0]] if node.level == 0 else []
+        else:
+            continue
+        for top in tops:
+            assert top not in FORBIDDEN, f"{path}:{node.lineno} imports {top}"
+
+
+def test_port_and_chip_smoke_import_with_jax_blocked():
+    """Import everything with ``jax`` and the JAX package made unimportable."""
+    code = "\n".join([
+        "import importlib, importlib.util, sys",
+        *[f"sys.modules[{name!r}] = None" for name in FORBIDDEN],
+        f"sys.path.insert(0, {ROOT!r})",
+        f"for name in {_port_modules()!r}:",
+        "    importlib.import_module(name)",
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(ROOT, 'chip_smoke.py')!r})",
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v is not None)",
+        "print('isolated ok')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "isolated ok" in out.stdout
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """Without a GPU and without an explicit device="cpu", every entry point raises."""
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
+    from multimodal_decoding_tpu_torch.decoding import searchlight as S
+    from multimodal_decoding_tpu_torch.device import resolve_device
+    from multimodal_decoding_tpu_torch.interop import block_inputs_from_numpy
+    from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    rng = np.random.RandomState(0)
+    x = rng.randn(10, 8).astype(np.float32)
+    y = rng.randn(10, 3).astype(np.float32)
+    adj = np.stack([np.arange(3) + i for i in range(4)]).astype(np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_searchlight(x, x[:4], x[:3], y, y[:4], y[:3], adj,
+                        np.array(["caption", "caption", "image", "image"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        block_inputs_from_numpy(X_all=x, idx=adj)
+    assert block_inputs_from_numpy(device="cpu", X_all=x)["X_all"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.run(S.SearchlightConfig(betas_dir=str(tmp_path), mesh_coords={}, n_neighbors=3))
+    assert cli.get_args([]).device == "cuda"
+    assert S.default_cv_solver() == "schur-cb"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")

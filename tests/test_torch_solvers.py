@@ -1,0 +1,101 @@
+"""Port parity: the SPD solvers and the panel kernel's plain version vs the JAX package.
+
+The JAX side reaches its Pallas kernel in interpret mode, as
+tests/test_pallas_solvers.py runs it off the TPU.  Tolerance: relative
+Frobenius error <= 1e-5 on ``A = X^T X + alpha I`` (the JAX kernel's own
+error against float64 is ~1e-7 here; the two float32 implementations sum in
+different orders).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_decoding_tpu.ops import pallas_solvers as JP
+from multimodal_decoding_tpu.ops import solvers as JS
+from multimodal_decoding_tpu_torch.ops import hopper_solvers as TH
+from multimodal_decoding_tpu_torch.ops import solvers as TS
+
+REL_TOL = 1e-5
+
+
+def _spd(seed: int, b: int, k: int, alpha: float = None) -> np.ndarray:
+    """[b, k, k] float32 ``X^T X + alpha I`` with X [b, 3k, k] standard normal."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(b, 3 * k, k).astype(np.float32)
+    alpha = float(k) if alpha is None else alpha
+    return (np.einsum("bnk,bnl->bkl", X, X) + alpha * np.eye(k)).astype(np.float32)
+
+
+def _rel(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+@pytest.mark.parametrize("b,pb", [(3, 16), (4, 100)])
+def test_chol_inv_panel_plain_matches_jax_kernel(b, pb):
+    A = _spd(pb, b, pb)
+    ref = np.asarray(JP.chol_inv_panel(A, interpret=True))
+    got = TH.chol_inv_panel(torch.as_tensor(A))  # CPU tensor: the plain version
+    assert _rel(got, ref) <= REL_TOL
+    assert np.all(np.triu(got.numpy(), 1) == 0.0)
+    L = np.linalg.cholesky(A.astype(np.float64))
+    assert _rel(got, np.linalg.inv(L)) <= REL_TOL
+
+
+def test_chol_inv_panel_cpu_path_does_not_count_launches():
+    TH.reset_launches()
+    TH.chol_inv_panel(torch.as_tensor(_spd(0, 2, 8)))
+    assert TH.launches == 0
+    with pytest.raises(ValueError, match=r"\[B, PB, PB\]"):
+        TH.chol_inv_panel(torch.zeros(2, 3, 4))
+
+
+# K=200 > 192: the Schur recursion runs; schur-pallas halves it into two
+# 100 x 100 base blocks for the panel kernel (interpret mode on the JAX side)
+@pytest.mark.parametrize("method", ["cholesky", "schur", "schur-cb", "schur-pallas"])
+def test_spd_inverse_and_solve_match_jax(method):
+    A = _spd(1, 2, 200)
+    rhs = np.random.RandomState(2).randn(2, 200, 7).astype(np.float32)
+    ref_inv = np.asarray(JS.spd_inverse(jnp.asarray(A), method=method))
+    got_inv = TS.spd_inverse(torch.as_tensor(A), method=method)
+    assert _rel(got_inv, ref_inv) <= REL_TOL
+    ref_x = np.asarray(JS.spd_solve(jnp.asarray(A), jnp.asarray(rhs), method=method))
+    got_x = TS.spd_solve(torch.as_tensor(A), torch.as_tensor(rhs), method=method)
+    assert _rel(got_x, ref_x) <= REL_TOL
+
+
+@pytest.mark.parametrize("k", [64, 70])
+def test_blocked_spd_inverse_matches_jax(k):
+    """K=70 pads to 80 with an identity corner; slicing back is exact."""
+    A = _spd(k, 2, k)
+    ref = np.asarray(JP.blocked_spd_inverse(A, panel=16, interpret=True))
+    got = TH.blocked_spd_inverse(torch.as_tensor(A), panel=16)
+    assert got.shape == (2, k, k)
+    assert _rel(got, ref) <= REL_TOL
+
+
+def test_pallas_method_solves_at_production_alphas():
+    """spd_solve(method="pallas") (PANEL=64, K padded 48 -> 64) on gram + alpha
+    at the ends of the production alpha grid, against the JAX Cholesky solve."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(800, 48).astype(np.float32)
+    G = X.T @ X
+    rhs = rng.randn(1, 48, 5).astype(np.float32)
+    for alpha in (1e2, 1e7):
+        A = (G + alpha * np.eye(48, dtype=np.float32))[None]
+        ref = np.asarray(JS.spd_solve(jnp.asarray(A), jnp.asarray(rhs), method="cholesky"))
+        got = TS.spd_solve(torch.as_tensor(A), torch.as_tensor(rhs), method="pallas")
+        assert _rel(got, ref) <= REL_TOL, alpha
+
+
+@pytest.mark.parametrize("method", ["schur-cb16", "schur-cb16-ns", "tri-inv"])
+def test_unported_methods_raise(method):
+    A = torch.as_tensor(_spd(5, 1, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        TS.spd_solve(A, A, method=method)
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        TS.spd_inverse(A, method=method)
+    with pytest.raises(ValueError, match="unknown"):
+        TS.spd_solve(A, A, method="qr")
