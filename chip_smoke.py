@@ -7,11 +7,14 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printing one JSON line with its seconds:
 
-1. build   - compile every kernel of the main path from csrc/ with nvcc.
+1. build   - compile every source under csrc/ with nvcc, one process each,
+             all started together.
 2. kernel  - each kernel against its plain PyTorch version on the card at the
              main path's shapes: max error, CUDA-event median times of the
              kernel, the plain version and one library yardstick, and the
-             least time the card could take (bound).
+             least time the card could take (bound).  The streamed-count
+             kernels must give counts equal to the plain version on
+             integer-valued inputs and accuracies within 1e-5 on Gaussian ones.
 3. gate    - two runner blocks (B=128) at full width (N=8192 train, 140 test,
              3 imagery, K=750, D=1024, 6 alphas x 5 folds, 100 shuffles),
              once with the shipped "schur-pallas" selection and once with the
@@ -19,11 +22,22 @@ Phases, each printing one JSON line with its seconds:
              varies over the sphere: at least 3 distinct alphas selected,
              alpha agreement >= 0.998, CV-score delta <= 1e-5, final-score
              delta <= 1e-4, and 240 kernel launches (2 blocks x 120).
-4. cli     - the port's searchlight CLI in-process, on a synthetic subject at
+4. scorers - the streamed-count selection path: the gate's problem and blocks
+             through run_searchlight with cv_scorer "pallas", "fused",
+             "fused-pallas" and "fused-inv" (and "xla" beside them) on the
+             "schur-pallas" solver, each held to the strict path: agreement
+             >= 0.998, >= 3 distinct alphas, CV-score delta <= 1e-5 ("pallas")
+             or 5e-5 ("fused*", reassociated through K), final-score delta
+             <= 1e-4, and exact launch counts (60 of the scorer's kernel, 240
+             of chol_inv_panel); prints vertices/s per scorer.
+5. cli     - the port's searchlight CLI in-process, on a synthetic subject at
              full width on icosphere(4) (2,562 vertices per hemisphere, the
              only cut from production's 163,842), with --n-neighbors 750,
              the 6-alpha CV and 100 null shuffles; checks the artifacts, the
-             planted-signal accuracies and that the kernel ran.
+             planted-signal accuracies and that only chol_inv_panel ran.
+
+On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
+main-path block step down by kernel (torch.profiler).
 
 Then it prints the card's name and power limit (nvidia-smi), one
 {"kernels": [...]} line, and as its last line
@@ -43,7 +57,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "gate", "cli")
+PHASES = ("build", "kernel", "gate", "scorers", "cli")
 EXTRA_PHASES = ("profile",)  # run on request: --phases build,profile
 DEVICE = "cuda"
 
@@ -52,13 +66,27 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 KERNEL_TOL = 1e-4         # max |kernel - plain| / max |plain|
+# streamed counts, Gaussian inputs: a flipped near-tie moves an accuracy by
+# 1/(nv^2 - nv) = 3.7e-7 at nv = 1639; float32 sums in another order flip few
+ACC_TOL = 1e-5
 ALPHA_AGREEMENT_MIN = 0.998
 CV_SCORE_DELTA_MAX = 1e-5  # per (vertex, alpha) CV accuracy
+FUSED_CV_SCORE_DELTA_MAX = 5e-5  # the fused* scorers reassociate sim through K
 SCORE_DELTA_MAX = 1e-4
 MIN_DISTINCT_ALPHAS = 3    # the gate must see the selection pick across the grid
 ALPHAS = [1e2, 1e3, 1e4, 1e5, 1e6, 1e7]
 N_TRAIN, N_TEST, N_IMAG, K, D, B, P = 8192, 140, 3, 750, 1024, 128, 100
-LAUNCHES_PER_BLOCK = 120  # 4 base blocks per Schur inverse x 6 alphas x 5 folds
+LAUNCHES_PER_BLOCK = 120  # chol_inv_panel: 4 base blocks per Schur inverse x 6 alphas x 5 folds
+SCORER_CALLS_PER_BLOCK = 30  # a streamed scorer's kernel: 6 alphas x 5 folds
+NV = 1639  # the largest validation fold of N_TRAIN = 8192 (KFold, 5 splits)
+STREAMED_SCORERS = {"pallas": "streamed_pairwise_acc", "fused": None,
+                    "fused-pallas": "streamed_acc_from_factors",
+                    "fused-inv": "streamed_acc_from_inv"}
+STREAMED = [  # (kernel, TPU kernel it replaces)
+    ("streamed_pairwise_acc", "multimodal_decoding_tpu/ops/pallas_metrics.py:74"),
+    ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
+    ("streamed_acc_from_factors", "multimodal_decoding_tpu/ops/pallas_metrics.py:230"),
+]
 
 
 def emit(obj) -> None:
@@ -95,13 +123,22 @@ def spd_batch(b: int, pb: int, alpha: float, seed: int):
 
 
 def phase_build() -> dict:
-    from multimodal_decoding_tpu_torch.ops import hopper_solvers
+    from multimodal_decoding_tpu_torch.ops import _cuda_build
 
-    path = hopper_solvers.build(force=True, verbose=True)
-    return {"library": os.path.relpath(path, ROOT)}
+    libs = _cuda_build.build_all(force=True, verbose=True)
+    if sorted(libs) != ["chol_inv_panel.cu", "streamed_count.cu"]:
+        raise AssertionError(f"unexpected kernel sources {sorted(libs)}")
+    return {"libraries": {src: os.path.relpath(p, ROOT) for src, p in libs.items()}}
 
 
 def phase_kernel() -> dict:
+    out = {"shapes": kernel_chol_inv_panel()}
+    for name, _ in STREAMED:
+        out[name] = kernel_streamed(name)
+    return out
+
+
+def kernel_chol_inv_panel() -> list:
     import torch
 
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
@@ -137,7 +174,97 @@ def phase_kernel() -> dict:
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         })
-    return {"shapes": shapes}
+    return shapes
+
+
+def streamed_inputs(name: str, kind: str, seed: int) -> tuple:
+    """Main-path-shaped inputs of a streamed scorer, on the card.
+
+    The fold patches come as the main path hands them over, a transposed
+    view [B, nv, K] of [nv, B, K].  Integer-valued inputs (in -3..3) keep
+    every product exact in float32 (|sim| < 2^24), and latent rows of
+    sixteen +-1 entries have norm exactly 4, so the plain version's counts
+    are exact and must be met exactly.
+    """
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def draw(*shape):
+        if kind == "integer":
+            return torch.randint(-3, 4, shape, generator=gen, device=DEVICE).float()
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    if name == "streamed_pairwise_acc":
+        if kind == "integer":
+            top = torch.rand((NV, D), generator=gen, device=DEVICE).topk(16, dim=-1).indices
+            signs = torch.randint(0, 2, top.shape, generator=gen, device=DEVICE).float() * 2 - 1
+            latents = torch.zeros((NV, D), device=DEVICE).scatter_(1, top, signs)
+        else:
+            latents = draw(NV, D)
+        return draw(B, NV, D), latents
+    Xv_b = draw(NV, B, K).permute(1, 0, 2)
+    if name == "streamed_acc_from_inv":
+        return Xv_b, draw(B, K, K), draw(B, K, NV)
+    return Xv_b, draw(B, K, NV)
+
+
+def kernel_streamed(name: str) -> dict:
+    """One streamed-count kernel at the main path's shape against its plain version."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    kernel, plain = getattr(HM, name), getattr(HM, name + "_plain")
+    args = streamed_inputs(name, "integer", seed=11)
+    got, ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: integer inputs, counts differ from the plain version "
+                             f"at {int((got != ref).sum())} of {B} vertices")
+    del args, got, ref
+    args = streamed_inputs(name, "gaussian", seed=12)
+    got, ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    max_abs = float((got - ref).abs().max())
+    if not (max_abs <= ACC_TOL):
+        raise AssertionError(f"{name}: Gaussian inputs, max |acc - plain| {max_abs:.3e} "
+                             f"> {ACC_TOL:g}")
+
+    # the same product by cuBLAS, without the count: what the GEMM alone costs
+    if name == "streamed_pairwise_acc":
+        preds, latents = args
+        y_t = (latents / torch.linalg.vector_norm(latents, dim=-1, keepdim=True)).mT
+
+        def library():
+            return torch.matmul(preds, y_t)
+    elif name == "streamed_acc_from_inv":
+        Xv_b, inv, U = args
+
+        def library():
+            return torch.bmm(Xv_b, torch.bmm(inv, U))
+    else:
+        Xv_b, Z = args
+
+        def library():
+            return torch.bmm(Xv_b, Z)
+
+    ms = cuda_time_ms(lambda: kernel(*args), reps=10, warmup=2)
+    plain_ms = cuda_time_ms(lambda: plain(*args), reps=10, warmup=2)
+    library_ms = cuda_time_ms(library, reps=10, warmup=2)
+    # each input read once, the [B] accuracies written once
+    depth = D if name == "streamed_pairwise_acc" else K
+    flops = 2.0 * B * NV * NV * depth
+    n_in = sum(a.numel() for a in args)
+    if name == "streamed_acc_from_inv":
+        flops += 2.0 * B * K * K * NV
+    bytes_ms = (n_in + B) * 4 / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOP_PER_S * 1e3
+    return {"shape": [list(a.shape) for a in args], "max_abs_err": max_abs,
+            "integer_counts_equal": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12}
 
 
 def planted_problem(coords, seed: int):
@@ -165,55 +292,92 @@ def planted_problem(coords, seed: int):
             Y_train.cpu().numpy(), Y_test.cpu().numpy(), Y_imag.cpu().numpy())
 
 
+class GateProblem:
+    """The selection gate's problem: two full-width blocks of a planted signal
+    graded over the sphere, with the null shuffles of a real run."""
+
+    def __init__(self):
+        import numpy as np
+
+        from multimodal_decoding_tpu_torch.data.stimuli import (
+            create_null_distr_shuffled_indices,
+        )
+        from multimodal_decoding_tpu_torch.io.surface import icosphere, knn_adjacency
+
+        coords = icosphere(4).coordinates
+        self.adjacency = knn_adjacency(coords, K)[0][:2 * B]
+        self.problem = planted_problem(coords, seed=0)
+        self.shuffles = np.stack(create_null_distr_shuffled_indices(P)).astype(np.int32)
+        self.stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
+
+    def run(self, solver, scorer):
+        """The runner over both blocks: (scores, aux)."""
+        from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
+
+        return run_searchlight(*self.problem, self.adjacency, self.stim_types,
+                               alphas_cv=ALPHAS, shuffles=self.shuffles, block_size=B,
+                               device=DEVICE, cv_solver=solver, cv_scorer=scorer,
+                               progress=False)
+
+    def cv_grids(self, runs):
+        """Per block, the CV-score grids [B, A] of fit_block_cv for each
+        (name, cv_solver, cv_scorer) in ``runs``: {name: [grid, grid]}."""
+        import torch
+
+        from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+
+        X_train = torch.as_tensor(self.problem[0], device=DEVICE)
+        Y_train = torch.as_tensor(self.problem[3], device=DEVICE)
+        alphas = torch.as_tensor(ALPHAS, dtype=torch.float32, device=DEVICE)
+        grids = {name: [] for name, _, _ in runs}
+        for b in range(2):
+            idx = torch.as_tensor(self.adjacency[b * B:(b + 1) * B], device=DEVICE)
+            Xg = E.gather_patches(X_train, idx)
+            for name, solver, scorer in runs:
+                grids[name].append(E.fit_block_cv(Xg, Y_train, alphas, cv_solver=solver,
+                                                   cv_scorer=scorer)[2])
+            del Xg
+        return grids
+
+
+def compare_paths(got, got_aux, ref, ref_aux) -> dict:
+    """Alpha agreement, final- and null-score deltas of two runner results."""
+    import numpy as np
+
+    return {
+        "alpha_agreement": float(np.mean(got_aux["best_alpha"] == ref_aux["best_alpha"])),
+        "max_final_score_delta": max(float(np.max(np.abs(got[m] - ref[m]))) for m in ref),
+        "max_null_score_delta": max(
+            float(np.max(np.abs(got_aux["null_scores"][m] - ref_aux["null_scores"][m])))
+            for m in ref_aux["null_scores"]),
+    }
+
+
 def phase_gate() -> dict:
     import numpy as np
-    import torch
 
-    from multimodal_decoding_tpu_torch.data.stimuli import create_null_distr_shuffled_indices
-    from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
     from multimodal_decoding_tpu_torch.decoding.searchlight import default_cv_solver
-    from multimodal_decoding_tpu_torch.io.surface import icosphere, knn_adjacency
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
-    from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 
     cv_solver = default_cv_solver(DEVICE)
     if cv_solver != "schur-pallas":
         raise AssertionError(f"CUDA default CV solver is {cv_solver!r}, not 'schur-pallas'")
-    coords = icosphere(4).coordinates
-    adjacency = knn_adjacency(coords, K)[0][:2 * B]
-    problem = planted_problem(coords, seed=0)
-    shuffles = np.stack(create_null_distr_shuffled_indices(P)).astype(np.int32)
-    stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
-
-    def run(solver, scorer):
-        return run_searchlight(*problem, adjacency, stim_types, alphas_cv=ALPHAS,
-                               shuffles=shuffles,
-                               block_size=B, device=DEVICE, cv_solver=solver,
-                               cv_scorer=scorer, progress=False)
-
+    gate = GateProblem()
     H.reset_launches()
-    fast, fast_aux = run(cv_solver, "xla")
+    HM.reset_launches()
+    fast, fast_aux = gate.run(cv_solver, "xla")
     launches = H.launches
-    strict, strict_aux = run(None, "strict")
-    agreement = float(np.mean(fast_aux["best_alpha"] == strict_aux["best_alpha"]))
-    delta = max(float(np.max(np.abs(fast[m] - strict[m]))) for m in strict)
-    null_delta = max(float(np.max(np.abs(fast_aux["null_scores"][m]
-                                         - strict_aux["null_scores"][m])))
-                     for m in strict_aux["null_scores"])
+    streamed_launches = sum(HM.launches.values())
+    strict, strict_aux = gate.run(None, "strict")
+    cmp = compare_paths(fast, fast_aux, strict, strict_aux)
+    agreement, delta = cmp["alpha_agreement"], cmp["max_final_score_delta"]
+    null_delta = cmp["max_null_score_delta"]
 
     # the CV score grids themselves: the scale-invariant and cosine scorers
     # rank identically, so the two selection paths differ only by rounding
-    X_train = torch.as_tensor(problem[0], device=DEVICE)
-    Y_train = torch.as_tensor(problem[3], device=DEVICE)
-    alphas = torch.as_tensor(ALPHAS, dtype=torch.float32, device=DEVICE)
-    cv_delta = 0.0
-    for b in range(2):
-        idx = torch.as_tensor(adjacency[b * B:(b + 1) * B], device=DEVICE)
-        Xg = E.gather_patches(X_train, idx)
-        cv_fast = E.fit_block_cv(Xg, Y_train, alphas, cv_solver=cv_solver, cv_scorer="xla")[2]
-        cv_strict = E.fit_block_cv(Xg, Y_train, alphas, cv_scorer="strict")[2]
-        cv_delta = max(cv_delta, float((cv_fast - cv_strict).abs().max()))
-        del Xg
+    grids = gate.cv_grids([("fast", cv_solver, "xla"), ("strict", None, "strict")])
+    cv_delta = max(float((f - s).abs().max()) for f, s in zip(grids["fast"], grids["strict"]))
 
     counts = dict(zip(*np.unique(fast_aux["best_alpha"], return_counts=True)))
     out = {"cv_solver": cv_solver, "alpha_agreement": agreement,
@@ -235,11 +399,62 @@ def phase_gate() -> dict:
     if launches != 2 * LAUNCHES_PER_BLOCK:
         raise AssertionError(f"{launches} kernel launches, expected "
                              f"{2 * LAUNCHES_PER_BLOCK}: {out}")
+    if streamed_launches:
+        raise AssertionError(f"the xla scorer launched {streamed_launches} streamed kernels")
     return out
 
 
-def phase_profile() -> dict:
-    """Where one main-path block step's device time goes (torch.profiler)."""
+def phase_scorers() -> dict:
+    """The streamed-count selection path, each scorer held to the strict path."""
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+
+    gate = GateProblem()
+    strict, strict_aux = gate.run(None, "strict")
+    out = {"strict_vertices_per_sec": strict_aux["vertices_per_sec"]}
+    for scorer in ("xla", *STREAMED_SCORERS):
+        H.reset_launches()
+        HM.reset_launches()
+        got, got_aux = gate.run("schur-pallas", scorer)
+        launches = {"chol_inv_panel": H.launches, **HM.launches}
+        counts = dict(zip(*np.unique(got_aux["best_alpha"], return_counts=True)))
+        out[scorer] = {**compare_paths(got, got_aux, strict, strict_aux),
+                       "best_alpha_counts": {f"{a:g}": int(c) for a, c in counts.items()},
+                       "launches": launches,
+                       "vertices_per_sec": got_aux["vertices_per_sec"]}
+    grids = gate.cv_grids([("strict", None, "strict")]
+                          + [(s, "schur-pallas", s) for s in ("xla", *STREAMED_SCORERS)])
+    for scorer in ("xla", *STREAMED_SCORERS):
+        res = out[scorer]
+        res["max_cv_score_delta"] = max(float((g - s).abs().max())
+                                        for g, s in zip(grids[scorer], grids["strict"]))
+        limit = (FUSED_CV_SCORE_DELTA_MAX if scorer.startswith("fused")
+                 else CV_SCORE_DELTA_MAX)
+        expected = {"chol_inv_panel": 2 * LAUNCHES_PER_BLOCK, **dict.fromkeys(HM.KERNELS, 0)}
+        if STREAMED_SCORERS.get(scorer):
+            expected[STREAMED_SCORERS[scorer]] = 2 * SCORER_CALLS_PER_BLOCK
+        fails = []
+        if len(res["best_alpha_counts"]) < MIN_DISTINCT_ALPHAS:
+            fails.append(f"only {len(res['best_alpha_counts'])} distinct alphas")
+        if res["alpha_agreement"] < ALPHA_AGREEMENT_MIN:
+            fails.append(f"alpha agreement {res['alpha_agreement']:.4f} < {ALPHA_AGREEMENT_MIN}")
+        if res["max_cv_score_delta"] > limit:
+            fails.append(f"CV-score delta {res['max_cv_score_delta']:.3e} > {limit:g}")
+        if res["max_final_score_delta"] > SCORE_DELTA_MAX:
+            fails.append(f"final-score delta {res['max_final_score_delta']:.3e} "
+                         f"> {SCORE_DELTA_MAX:g}")
+        if res["launches"] != expected:
+            fails.append(f"launches {res['launches']}, expected {expected}")
+        if fails:
+            raise AssertionError(f"cv_scorer {scorer!r}: {'; '.join(fails)}: {res}")
+    return out
+
+
+def phase_profile(scorer: str = "xla") -> dict:
+    """Where one main-path block step's device time goes (torch.profiler),
+    with the CV fold scorer ``scorer``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -261,7 +476,7 @@ def phase_profile() -> dict:
     def step():
         return E.searchlight_block_cv_with_null(
             X_all, Ytr, Yte, Yim, idx, None, alphas, shuffles, der, layout=layout,
-            n_train=N_TRAIN, n_test=N_TEST, cv_solver="schur-pallas")
+            n_train=N_TRAIN, n_test=N_TEST, cv_solver="schur-pallas", cv_scorer=scorer)
 
     step()
     torch.cuda.synchronize()
@@ -285,7 +500,8 @@ def phase_profile() -> dict:
                       if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
                      key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels) / 1e3
-    return {"block_wall_ms": sorted(walls)[1] * 1e3, "profiled_wall_ms": prof_wall * 1e3,
+    return {"cv_scorer": scorer,
+            "block_wall_ms": sorted(walls)[1] * 1e3, "profiled_wall_ms": prof_wall * 1e3,
             "device_ms": device_ms, "device_busy_share": device_ms / (prof_wall * 1e3),
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in kernels[:14]]}
 
@@ -299,6 +515,7 @@ def phase_cli() -> dict:
     from multimodal_decoding_tpu_torch.data.synthetic import make_synthetic_dataset
     from multimodal_decoding_tpu_torch.io import artifacts
     from multimodal_decoding_tpu_torch.io.surface import icosphere, write_freesurfer_geometry
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
     from multimodal_decoding_tpu_torch.ops import metrics as M
 
@@ -324,10 +541,13 @@ def phase_cli() -> dict:
                 "--block-size", str(B), "--mesh-dir", os.path.join(root, "surfaces"),
                 "--out-dir", out_dir, "--device", DEVICE]
         H.reset_launches()
+        HM.reset_launches()
         t1 = time.time()
         paths = cli.main(argv)
         cli_s = time.time() - t1
         launches = H.launches
+        if any(HM.launches.values()):
+            raise AssertionError(f"the default path launched streamed kernels: {HM.launches}")
 
         if len(paths) != 1:
             raise AssertionError(f"expected one results pickle, got {paths}")
@@ -357,11 +577,39 @@ def phase_cli() -> dict:
                 "launches": launches}
 
 
+def kernels_line(results: dict) -> dict:
+    """The {"kernels": [...]} summary: each kernel's launches on its main path
+    (the CLI for chol_inv_panel, its scorer's run for the streamed ones) and
+    its measurements from the kernel phase."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main_shape = results.get("kernel", {}).get("shapes", [{}])[0]
+    kernels = [{
+        "name": "chol_inv_panel", "route": "cuda",
+        "source": "multimodal_decoding_tpu_torch/csrc/chol_inv_panel.cu",
+        "replaces": "multimodal_decoding_tpu/ops/pallas_solvers.py:133",
+        "launches": results.get("cli", {}).get("launches"),
+        **{k: main_shape.get(k) for k in keys}, "max_rel_err": main_shape.get("max_rel_err"),
+    }]
+    scorer_of = {kernel: scorer for scorer, kernel in STREAMED_SCORERS.items() if kernel}
+    for name, replaces in STREAMED:
+        measured = results.get("kernel", {}).get(name, {})
+        run = results.get("scorers", {}).get(scorer_of[name], {})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_decoding_tpu_torch/csrc/streamed_count.cu",
+            "replaces": replaces, "launches": run.get("launches", {}).get(name),
+            **{k: measured.get(k) for k in keys},
+        })
+    return {"kernels": kernels}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA_PHASES} "
                          f"(default: {','.join(PHASES)})")
+    ap.add_argument("--scorer", default="xla", choices=("xla", *STREAMED_SCORERS),
+                    help="CV fold scorer of the profile phase (default: xla)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -387,7 +635,8 @@ def main() -> int:
     for name in phases:
         t0 = time.time()
         out = {"build": phase_build, "kernel": phase_kernel, "gate": phase_gate,
-               "cli": phase_cli, "profile": phase_profile}[name]()
+               "scorers": phase_scorers, "cli": phase_cli,
+               "profile": lambda: phase_profile(args.scorer)}[name]()
         results[name] = out
         emit({"phase": name, "seconds": time.time() - t0, **out})
 
@@ -396,23 +645,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    main_shape = results.get("kernel", {}).get("shapes", [{}])[0]
-    emit({"kernels": [{
-        "name": "chol_inv_panel",
-        "route": "cuda",
-        "source": "multimodal_decoding_tpu_torch/csrc/chol_inv_panel.cu",
-        "replaces": "multimodal_decoding_tpu/ops/pallas_solvers.py:133",
-        "shape": main_shape.get("shape"),
-        "launches": results.get("cli", {}).get("launches"),
-        "max_abs_err": main_shape.get("max_abs_err"),
-        "max_rel_err": main_shape.get("max_rel_err"),
-        "ms": main_shape.get("ms"),
-        "kernel_ms": main_shape.get("ms"),  # the same time, under PERF.md's column name
-        "plain_ms": main_shape.get("plain_ms"),
-        "bound_ms": main_shape.get("bound_ms"),
-        "bound_by": main_shape.get("bound_by"),
-        "library_ms": main_shape.get("library_ms"),
-    }]})
+    emit(kernels_line(results))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

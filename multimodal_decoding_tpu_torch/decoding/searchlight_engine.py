@@ -15,9 +15,13 @@ patches, ``[B, K, D]`` weights, ``[B, M, D]`` predictions), so the tests
 compare like with like.  The block steps are plain functions; PyTorch runs
 them eagerly.
 
+Every CV fold scorer of the JAX package is here: ``"xla"``, ``"strict"``,
+and the streamed-count scorers ``"pallas"``, ``"fused-pallas"`` and
+``"fused-inv"`` (hand-written kernels in ``ops/hopper_metrics.py``) with
+their dense twin ``"fused"``.
+
 Everything is float32.  The JAX package's TPU selection options wait for
-later PRs and raise here: ``cv_dtype`` (bf16 selection storage, ROADMAP
-A15), the ``"pallas"`` and ``"fused*"`` CV scorers (kernels B3-B5),
+later PRs and raise here: ``cv_dtype`` (bf16 selection storage),
 ``cv_unroll`` and ``cv_alpha_batch`` (ROADMAP A15).
 """
 
@@ -28,11 +32,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
 from multimodal_decoding_tpu_torch.ops import metrics as M
 from multimodal_decoding_tpu_torch.ops.ridge import first_argmax_with_tol, kfold_indices
-from multimodal_decoding_tpu_torch.ops.solvers import spd_solve
+from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse, spd_solve
 
-CV_SCORERS = ("xla", "strict")
+CV_SCORERS = ("xla", "strict", "pallas", "fused", "fused-pallas", "fused-inv")
+_FUSED_SCORERS = ("fused", "fused-pallas", "fused-inv")
 NULL_GATHER_MODES = ("gather", "onehot", "onehot-bf16")
 
 # DERANGEMENTS_THREE_DIMS of the reference (searchlight.py:35)
@@ -110,14 +116,21 @@ def fit_block_cv(
     ``cv_solver`` applies only to the alpha-selection solves (the refit uses
     ``solver``).  ``cv_scorer``: "xla" is the scale-invariant fold scorer
     (unnormalised predictions against unit latent rows); "strict"
-    materialises cosine-distance matrices like the final metrics.
+    materialises cosine-distance matrices like the final metrics; "pallas"
+    counts the same comparisons as "xla" with the streamed kernel
+    (``HM.streamed_pairwise_acc``).  The "fused*" scorers reassociate
+    ``sim = Xv W Yv_n^T`` through K: ``U = XtY_tr Yv_n^T`` once per fold,
+    ``inv = (G_tr + a I)^-1`` per alpha, ``sim = Xv (inv U)``, with no
+    ``[B, nv, D]`` predictions: "fused" forms ``sim`` densely,
+    "fused-pallas" streams it from ``Z = inv U``
+    (``HM.streamed_acc_from_factors``) and "fused-inv" forms ``Z`` inside
+    the kernel's call too (``HM.streamed_acc_from_inv``).
     """
     if cv_dtype is not None:
         raise ValueError("cv_dtype (bf16 selection storage) is not ported yet "
                          "(ROADMAP A15); the port's selection path is float32")
     if cv_scorer not in CV_SCORERS:
-        raise ValueError(f"cv_scorer {cv_scorer!r} is not ported yet (its streamed-count "
-                         f"kernels are ROADMAP B3-B5); use one of {CV_SCORERS}")
+        raise ValueError(f"unknown cv_scorer {cv_scorer!r}; use one of {CV_SCORERS}")
     if cv_unroll or cv_alpha_batch:
         raise ValueError("cv_unroll / cv_alpha_batch are not ported yet (ROADMAP A15)")
     cv_solver = solver if cv_solver is None else cv_solver
@@ -136,11 +149,27 @@ def fit_block_cv(
         G_tr = G_full - _gram(Xv)
         XtY_tr = XtY_full - _cross(Xv, Yv)
         out = []
+        if cv_scorer in _FUSED_SCORERS:
+            U = XtY_tr @ Yv_n.mT  # [B, K, nv], once per fold
+            Xv_b = Xv.permute(1, 0, 2)  # [B, nv, K] view, once per fold
+            for a in range(alphas.shape[0]):
+                inv = spd_inverse(G_tr + alphas[a] * eye, method=cv_solver)
+                if cv_scorer == "fused-inv":
+                    out.append(HM.streamed_acc_from_inv(Xv_b, inv, U))
+                    continue
+                Z = inv @ U  # [B, K, nv]
+                if cv_scorer == "fused-pallas":
+                    out.append(HM.streamed_acc_from_factors(Xv_b, Z))
+                else:
+                    out.append(M.pairwise_acc_from_sim(Xv_b @ Z))
+            return torch.stack(out)  # [A, B]
         for a in range(alphas.shape[0]):
             W = spd_solve(G_tr + alphas[a] * eye, XtY_tr, method=cv_solver)
             preds = predict_block(Xv, W)  # [B, nv, D]
             if cv_scorer == "xla":
                 out.append(M.pairwise_acc_scale_invariant(preds, Yv_n))
+            elif cv_scorer == "pallas":
+                out.append(HM.streamed_pairwise_acc(preds, Yv))
             else:
                 out.append(M.pairwise_acc_from_dist(M.cosine_distances(preds, Yv)))
         return torch.stack(out)  # [A, B]

@@ -1,0 +1,101 @@
+"""Build and load the port's hand-written CUDA sources (``csrc/*.cu``).
+
+Each source is compiled on its own with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
+plain C interface under ``_build/`` (git-ignored), one library per source,
+named by a hash of its content, and loaded with ``ctypes``.  Nothing here runs
+at import: the CPU tests import every module, and there is no ``nvcc`` there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
+
+
+def sources() -> list[str]:
+    """Every CUDA source of the port, by file name (``chol_inv_panel.cu``, ...)."""
+    return sorted(os.path.basename(p) for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the "
+                       "kernels in csrc/")
+
+
+def build(source: str, force: bool = False, verbose: bool = False) -> str:
+    """Compile ``csrc/<source>`` into ``BUILD_DIR`` (once per source content).
+
+    Returns the path of the shared library.  The file name carries a hash of
+    the source, so an edited source is rebuilt and never confused with an
+    older library; the library is written to a temporary name and renamed
+    into place, so a concurrent build never sees a partial file.  ``force``
+    rebuilds even when the library exists; ``verbose`` prints what
+    ``ptxas -v`` reports (registers, shared memory, spills).
+    """
+    src = os.path.join(CSRC_DIR, source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    stem = os.path.splitext(source)[0]
+    lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    if os.path.isfile(lib_path) and not force:
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stderr}")
+        if verbose:
+            print(f"{source}:\n{proc.stderr}", flush=True)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib_path
+
+
+def build_all(force: bool = False, verbose: bool = False) -> dict[str, str]:
+    """Build every source at once, one ``nvcc`` each, all started together."""
+    srcs = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(srcs))) as pool:
+        paths = pool.map(lambda s: build(s, force=force, verbose=verbose), srcs)
+        return dict(zip(srcs, paths))
+
+
+def load(source: str, signatures: dict) -> ctypes.CDLL:
+    """The library of ``csrc/<source>``, built at first use.
+
+    ``signatures`` maps each C entry point to its ``argtypes``; every entry
+    point returns an ``int`` (a ``cudaError_t``).
+    """
+    with _libs_lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(build(source))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[source] = lib
+    return lib

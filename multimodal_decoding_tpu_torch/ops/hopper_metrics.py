@@ -1,0 +1,189 @@
+"""Streamed pairwise-accuracy scorers on Hopper: hand-written count-GEMM kernels.
+
+Counterpart of ``multimodal_decoding_tpu/ops/pallas_metrics.py``, with its
+public names and argument layouts.  Each function returns the pairwise 2-AFC
+accuracy ``[B]`` of a per-vertex similarity ``sim [B, nv, nv]``, counting
+``sim_ij < sim_ii`` over ``j < nv`` and dividing by ``nv^2 - nv``, without
+ever writing ``sim`` to device memory:
+
+* ``streamed_pairwise_acc(preds [B, nv, D], latents [nv, D])``:
+  ``sim = preds (latents / |latents|)^T`` (the latent rows are normalised
+  here; prediction row norms cancel in the per-row comparisons).
+* ``streamed_acc_from_factors(Xv_b [B, nv, K], Z [B, K, nv])``: ``sim = Xv_b Z``.
+* ``streamed_acc_from_inv(Xv_b [B, nv, K], inv [B, K, K], U [B, K, nv])``:
+  ``sim = Xv_b (inv U)``, where ``inv U`` is formed by the hand-written GEMM
+  of the same source, not by a library call.
+
+On a CUDA tensor each launches the kernels of ``csrc/streamed_count.cu``
+(built with ``nvcc`` at first use, loaded with ``ctypes`` by
+``ops/_cuda_build``); they read their operands through strides, so a
+transposed view costs no copy.  On a CPU tensor each runs its ``*_plain``
+version: a dense ``sim`` by ``torch.matmul``, then
+``M.pairwise_acc_from_sim``.  There is no fallback from one to the other.
+
+Precision: the JAX functions take ``precision`` because the TPU's matrix
+unit has pass counts.  These kernels take none: every product is float32
+FMAs with one float32 accumulator per entry, and the diagonal is computed
+with exactly the arithmetic of the off-diagonal entries it is compared with.
+
+``launches`` counts each function's kernel calls on the card (one per call;
+the CPU path does not count); ``reset_launches`` sets them to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from multimodal_decoding_tpu_torch.ops import _cuda_build
+from multimodal_decoding_tpu_torch.ops import metrics as M
+
+_SOURCE = "streamed_count.cu"
+_STRIDED_GEMM = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                 ctypes.c_int]
+_SIGNATURES = {
+    "streamed_count_launch": _STRIDED_GEMM + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_void_p, ctypes.c_void_p],
+    "gemm_store_launch": _STRIDED_GEMM + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p],
+}
+
+KERNELS = ("streamed_pairwise_acc", "streamed_acc_from_inv", "streamed_acc_from_factors")
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _unit_rows(latents: torch.Tensor) -> torch.Tensor:
+    return latents / torch.linalg.vector_norm(latents, dim=-1, keepdim=True)
+
+
+def _uses_kernel(name: str, *tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for float32 CUDA tensors; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32; got {t.dtype}")
+    return True
+
+
+def _check_shapes(name: str, expected: str, ok: bool, *tensors: torch.Tensor) -> None:
+    if not ok:
+        got = ", ".join(str(tuple(t.shape)) for t in tensors)
+        raise ValueError(f"{name} expects {expected}; got {got}")
+
+
+def _call(fn_name: str, *args) -> None:
+    lib = _cuda_build.load(_SOURCE, _SIGNATURES)
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
+
+
+def _count_on_card(name: str, a: torch.Tensor, a_strides, bm: torch.Tensor, bm_strides,
+                   b: int, nv: int, kd: int) -> torch.Tensor:
+    """Accuracies [b] of sim = A Bm by the count kernel, counted as a launch of ``name``.
+
+    ``a_strides`` = (batch, row, k) strides of A [b, nv, kd]; ``bm_strides``
+    = (batch, k, column) strides of Bm [b, kd, nv], in elements.
+    """
+    counts = torch.zeros((b,), dtype=torch.int32, device=a.device)
+    if b and nv and kd:
+        diag = torch.empty((b, nv), dtype=torch.float32, device=a.device)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            _call("streamed_count_launch", a.data_ptr(), *a_strides, bm.data_ptr(),
+                  *bm_strides, b, nv, kd, diag.data_ptr(), counts.data_ptr(), stream)
+        launches[name] += 1
+    return M.count_ratio(counts, nv * nv - nv)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path; the card's reference in chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+def streamed_pairwise_acc_plain(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+    return M.pairwise_acc_from_sim(preds @ _unit_rows(latents).mT)
+
+
+def streamed_acc_from_inv_plain(Xv_b: torch.Tensor, inv: torch.Tensor,
+                                U: torch.Tensor) -> torch.Tensor:
+    return M.pairwise_acc_from_sim(Xv_b @ (inv @ U))
+
+
+def streamed_acc_from_factors_plain(Xv_b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    return M.pairwise_acc_from_sim(Xv_b @ Z)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def streamed_pairwise_acc(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+    """Pairwise accuracy [B] of preds [B, nv, D] against latents [nv, D].
+
+    Equals ``pairwise_acc_from_dist(cosine_distances(preds, latents))``
+    without the distance matrix.
+    """
+    name = "streamed_pairwise_acc"
+    _check_shapes(name, "preds [B, nv, D] and latents [nv, D]",
+                  preds.dim() == 3 and latents.dim() == 2
+                  and tuple(preds.shape[1:]) == tuple(latents.shape), preds, latents)
+    if not _uses_kernel(name, preds, latents):
+        return streamed_pairwise_acc_plain(preds, latents)
+    b, nv, d = preds.shape
+    y = _unit_rows(latents)
+    # Bm[b, k, j] = y[j, k], shared by every vertex (batch stride 0)
+    return _count_on_card(name, preds, preds.stride(), y, (0, y.stride(1), y.stride(0)),
+                          b, nv, d)
+
+
+def streamed_acc_from_factors(Xv_b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ Z [B, K, nv]."""
+    name = "streamed_acc_from_factors"
+    _check_shapes(name, "Xv_b [B, nv, K] and Z [B, K, nv]",
+                  Xv_b.dim() == 3 and Z.dim() == 3 and Z.shape[0] == Xv_b.shape[0]
+                  and Z.shape[1] == Xv_b.shape[2] and Z.shape[2] == Xv_b.shape[1], Xv_b, Z)
+    if not _uses_kernel(name, Xv_b, Z):
+        return streamed_acc_from_factors_plain(Xv_b, Z)
+    b, nv, k = Xv_b.shape
+    return _count_on_card(name, Xv_b, Xv_b.stride(), Z, Z.stride(), b, nv, k)
+
+
+def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor,
+                          U: torch.Tensor) -> torch.Tensor:
+    """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ (inv [B, K, K] @ U [B, K, nv]).
+
+    On the card ``Z = inv U`` is formed by the source's own GEMM kernel into
+    a workspace and read back by the count kernel (one call).
+    """
+    name = "streamed_acc_from_inv"
+    _check_shapes(name, "Xv_b [B, nv, K], inv [B, K, K] and U [B, K, nv]",
+                  Xv_b.dim() == 3 and inv.dim() == 3 and U.dim() == 3
+                  and inv.shape[0] == U.shape[0] == Xv_b.shape[0]
+                  and inv.shape[1] == inv.shape[2] == U.shape[1] == Xv_b.shape[2]
+                  and U.shape[2] == Xv_b.shape[1], Xv_b, inv, U)
+    if not _uses_kernel(name, Xv_b, inv, U):
+        return streamed_acc_from_inv_plain(Xv_b, inv, U)
+    b, nv, k = Xv_b.shape
+    Z = torch.empty((b, k, nv), dtype=torch.float32, device=Xv_b.device)
+    if b and nv and k:
+        with torch.cuda.device(Xv_b.device):
+            stream = torch.cuda.current_stream(Xv_b.device).cuda_stream
+            _call("gemm_store_launch", inv.data_ptr(), *inv.stride(), U.data_ptr(),
+                  *U.stride(), b, k, nv, k, Z.data_ptr(), stream)
+    return _count_on_card(name, Xv_b, Xv_b.stride(), Z, Z.stride(), b, nv, k)

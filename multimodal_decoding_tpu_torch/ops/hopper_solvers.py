@@ -5,9 +5,9 @@ Counterpart of ``multimodal_decoding_tpu/ops/pallas_solvers.py``.
 * ``chol_inv_panel`` replaces the Pallas kernel of the same name: for a batch
   ``[B, PB, PB]`` of float32 SPD blocks it returns ``L^-1`` with
   ``L = chol(A)`` lower.  On a CUDA tensor it launches the CUDA kernel in
-  ``csrc/chol_inv_panel.cu`` (built with ``nvcc`` at first use, loaded with
-  ``ctypes``); on a CPU tensor it runs ``chol_inv_panel_plain``.  There is
-  no fallback from one to the other.
+  ``csrc/chol_inv_panel.cu`` (built with ``nvcc`` at first use and loaded
+  with ``ctypes`` by ``ops/_cuda_build``); on a CPU tensor it runs
+  ``chol_inv_panel_plain``.  There is no fallback from one to the other.
 * ``blocked_spd_inverse`` is the torch driver around the same kernel: a
   right-looking blocked Cholesky (``PANEL = 64``) whose diagonal panels go
   through ``chol_inv_panel``, with GEMM trailing updates, blocked forward
@@ -22,85 +22,24 @@ so a run can show that its main path went through the kernel;
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
+
+from multimodal_decoding_tpu_torch.ops import _cuda_build
 
 PANEL = 64
 MAX_PANEL = 192  # the kernel keeps a whole block in shared memory
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "chol_inv_panel.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         "_build")
+_SOURCE = "chol_inv_panel.cu"
+_SIGNATURES = {"chol_inv_panel_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]}
 
 launches = 0
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "csrc/chol_inv_panel.cu")
-
-
-def build(force: bool = False, verbose: bool = False) -> str:
-    """Compile the kernel into ``BUILD_DIR`` (once per source content).
-
-    Returns the path of the shared library.  The file name carries a hash of
-    the source, so an edited source is rebuilt and never confused with an
-    older library; the library is written to a temporary name and renamed
-    into place, so concurrent builders never see a partial file.  ``force``
-    rebuilds even when the library exists; ``verbose`` prints what
-    ``ptxas -v`` reports (registers, shared memory, spills).
-    """
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib_path = os.path.join(BUILD_DIR, f"libchol_inv_panel_{digest}.so")
-    if os.path.isfile(lib_path) and not force:
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SRC]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, flush=True)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib_path
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.chol_inv_panel_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def chol_inv_panel_plain(a: torch.Tensor) -> torch.Tensor:
@@ -133,7 +72,7 @@ def chol_inv_panel(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if b == 0 or pb == 0:
         return out
-    lib = _load()
+    lib = _cuda_build.load(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         rc = lib.chol_inv_panel_launch(a.data_ptr(), out.data_ptr(), b, pb, stream)

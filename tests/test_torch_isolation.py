@@ -32,7 +32,8 @@ def _port_files():
 
 def test_every_port_module_is_found():
     mods = _port_modules()
-    for expected in ("device", "interop", "config", "ops.hopper_solvers", "ops.solvers",
+    for expected in ("device", "interop", "config", "ops._cuda_build", "ops.hopper_solvers",
+                     "ops.hopper_metrics", "ops.solvers",
                      "decoding.searchlight_engine", "parallel.searchlight_runner",
                      "cli.run_searchlight", "io.surface", "data.synthetic"):
         assert f"{port.__name__}.{expected}" in mods

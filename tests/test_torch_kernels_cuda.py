@@ -15,11 +15,15 @@ shapes in every chip run.
 import pytest
 import torch
 
+from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
 from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
 
 pytestmark = pytest.mark.cuda
 
 REL_TOL = 1e-4  # max |kernel - plain| / max |plain|, float32 sums in another order
+# streamed counts on Gaussian inputs: two float32 summation orders disagree
+# only on near-ties; one flipped comparison moves an accuracy by 1/(nv^2 - nv)
+ACC_TOL = 1e-5
 
 
 @pytest.fixture()
@@ -62,3 +66,76 @@ def test_chol_inv_panel_kernel_rejects_what_it_does_not_take(cuda):
         H.chol_inv_panel(torch.eye(8, device=cuda, dtype=torch.float64)[None])
     with pytest.raises(ValueError, match="contiguous"):
         H.chol_inv_panel(torch.eye(8, device=cuda)[None].expand(2, 8, 8))
+
+
+def _streamed_inputs(name, kind, b, nv, k, device):
+    """Inputs of the streamed scorer ``name``; the depth is D = 1024 for
+    streamed_pairwise_acc where ``k`` > 1.  Integer inputs keep every product
+    exact in float32 (latent rows of sixteen +-1 entries have norm exactly 4)."""
+    gen = torch.Generator(device=device).manual_seed(b * 7919 + nv * 31 + k)
+
+    def draw(*shape):
+        if kind == "integer":
+            return torch.randint(-3, 4, shape, generator=gen, device=device).float()
+        return torch.randn(shape, generator=gen, device=device)
+
+    if name == "streamed_pairwise_acc":
+        d = 1024 if k > 1 else 1
+        if kind == "integer":
+            keys = torch.rand((nv, d), generator=gen, device=device)
+            top = keys.topk(min(16, d), dim=-1).indices
+            signs = torch.randint(0, 2, top.shape, generator=gen, device=device).float() * 2 - 1
+            latents = torch.zeros((nv, d), device=device).scatter_(1, top, signs)
+        else:
+            latents = draw(nv, d)
+        return draw(b, nv, d), latents
+    if name == "streamed_acc_from_inv":
+        return draw(b, nv, k), draw(b, k, k), draw(b, k, nv)
+    return draw(b, nv, k), draw(b, k, nv)
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+@pytest.mark.parametrize("b,nv,k", [(1, 1, 1), (1, 7, 750), (128, 7, 1), (128, 256, 750),
+                                    (1, 1639, 750), (128, 1639, 750)])
+@pytest.mark.parametrize("name", HM.KERNELS)
+def test_streamed_kernel_matches_plain(cuda, name, b, nv, k, kind):
+    args = _streamed_inputs(name, kind, b, nv, k, cuda)
+    before = HM.launches[name]
+    got = getattr(HM, name)(*args)
+    torch.cuda.synchronize()
+    assert HM.launches[name] == before + 1
+    ref = getattr(HM, name + "_plain")(*args)
+    if kind == "integer":
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    else:
+        torch.testing.assert_close(got, ref, rtol=0, atol=ACC_TOL, equal_nan=True)
+
+
+def test_streamed_kernels_read_strided_views(cuda):
+    """The fold patches reach the kernels as a transposed view [B, nv, K] of
+    [nv, B, K]: the same counts as a contiguous copy, and no copy is made."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    Xv = torch.randn((300, 16, 40), generator=gen, device=cuda)
+    Z = torch.randn((16, 40, 300), generator=gen, device=cuda)
+    inv = torch.randn((16, 40, 40), generator=gen, device=cuda)
+    view = Xv.permute(1, 0, 2)
+    assert not view.is_contiguous()
+    for got, ref in ((HM.streamed_acc_from_factors(view, Z),
+                      HM.streamed_acc_from_factors(view.contiguous(), Z)),
+                     (HM.streamed_acc_from_inv(view, inv, Z),
+                      HM.streamed_acc_from_inv(view.contiguous(), inv, Z)),
+                     (HM.streamed_pairwise_acc(view, Xv[:, 0]),
+                      HM.streamed_pairwise_acc(view.contiguous(), Xv[:, 0].contiguous()))):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_streamed_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 5, 3), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        HM.streamed_acc_from_factors(x.double(), torch.zeros((2, 3, 5), device=cuda).double())
+    with pytest.raises(TypeError, match="float32"):
+        HM.streamed_pairwise_acc(x, torch.zeros((5, 3), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match=r"Z \[B, K, nv\]"):
+        HM.streamed_acc_from_factors(x, torch.zeros((2, 5, 3), device=cuda))
+    with pytest.raises(ValueError, match="several devices"):
+        HM.streamed_acc_from_inv(x, torch.zeros((2, 3, 3)), torch.zeros((2, 3, 5), device=cuda))

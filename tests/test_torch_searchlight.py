@@ -255,6 +255,58 @@ def test_runners_agree_with_shared_derangements():
         torch_run_searchlight(**prob, device="cpu", imagery_derangements=drawn[:8], **common)
 
 
+@pytest.mark.parametrize("cv_scorer", ["pallas", "fused-pallas"])
+def test_runners_agree_with_streamed_scorers(cv_scorer):
+    """The streamed-count selection path end to end: the JAX runner with its
+    Pallas count kernel (interpret mode) and the port's runner with the plain
+    version agree on every score, null score and selected alpha."""
+    prob, p = _runner_problem()
+    common = dict(alphas_cv=ALPHAS, shuffles=p["shuffles"], block_size=8, progress=False,
+                  cv_solver="schur-cb", cv_scorer=cv_scorer)
+    ref, ref_aux = jax_run_searchlight(**prob, mesh=vertex_mesh(jax.devices()[:1]),
+                                       cv_precision=jax.lax.Precision.HIGHEST, **common)
+    got, aux = torch_run_searchlight(**prob, device="cpu",
+                                     imagery_derangements=_jax_derangements(0, 2, 8, P),
+                                     **common)
+    assert sorted(got) == sorted(ref)
+    for m in ref:
+        np.testing.assert_array_equal(got[m], ref[m], err_msg=m)
+    np.testing.assert_array_equal(aux["best_alpha"], ref_aux["best_alpha"])
+    for m, v in ref_aux["null_scores"].items():
+        np.testing.assert_array_equal(aux["null_scores"][m], v, err_msg=m)
+
+
+@pytest.mark.parametrize("cv_scorer,kernel", [
+    ("pallas", "streamed_pairwise_acc"),
+    ("fused-pallas", "streamed_acc_from_factors"),
+    ("fused-inv", "streamed_acc_from_inv"),
+])
+def test_runner_reaches_each_streamed_kernel(monkeypatch, cv_scorer, kernel):
+    """run_searchlight(cv_scorer=...) calls the scorer's kernel wrapper once per
+    (block, fold, alpha), and no other wrapper."""
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    calls = dict.fromkeys(HM.KERNELS, 0)
+
+    def spy(name):
+        wrapped = getattr(HM, name)
+
+        def call(*args):
+            calls[name] += 1
+            return wrapped(*args)
+        return call
+
+    for name in HM.KERNELS:
+        monkeypatch.setattr(HM, name, spy(name))
+    prob, p = _runner_problem()
+    torch_run_searchlight(**prob, alphas_cv=ALPHAS, shuffles=p["shuffles"], block_size=8,
+                          progress=False, cv_solver="schur-cb", cv_scorer=cv_scorer,
+                          device="cpu")
+    expected = dict.fromkeys(HM.KERNELS, 0)
+    expected[kernel] = 2 * 5 * len(ALPHAS)  # blocks x folds x alphas
+    assert calls == expected
+
+
 def test_resume_false_deletes_stale_checkpoint(tmp_path):
     """resume=False (--overwrite) starts from scratch and deletes a stale
     checkpoint; resume=True resumes it and rates only the new work."""

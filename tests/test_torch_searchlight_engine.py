@@ -221,16 +221,27 @@ def test_searchlight_block_cv_with_null_matches_jax(problem):
         _assert_equal_dicts(r, g)
 
 
-@pytest.mark.parametrize("cv_scorer", ["xla", "strict"])
-def test_fit_block_cv_weights_match_jax(problem, cv_scorer):
+# (cv_scorer, cv_solver): the dense scorers on "schur-cb"; each streamed-count
+# scorer (Pallas kernels in interpret mode on the JAX side) on the strict
+# solver and on the selection solver with the panel kernel
+_CV_CASES = [pytest.param("xla", "schur-cb", id="xla"),
+             pytest.param("strict", "schur-cb", id="strict")] + [
+    pytest.param(scorer, solver, id=f"{scorer}-{solver}")
+    for scorer in ("pallas", "fused", "fused-pallas", "fused-inv")
+    for solver in ("cholesky", "schur-pallas")]
+
+
+@pytest.mark.parametrize("cv_scorer,cv_solver", _CV_CASES)
+def test_fit_block_cv_weights_match_jax(problem, cv_scorer, cv_solver):
     """W [B, K, D], best_alpha and the CV scores of fit_block_cv in both packages."""
     p, t = problem, _torch_inputs(problem)
     Xj = JE.gather_patches(jnp.asarray(p["X_all"]), jnp.asarray(p["idx"]))[:N_TRAIN]
     Xt = TE.gather_patches(t["X_all"], t["idx"])[:N_TRAIN]
     np.testing.assert_array_equal(Xt.numpy(), np.asarray(Xj))
     Wj, aj, sj = JE.fit_block_cv(Xj, p["Y_train"], jnp.asarray(p["alphas"]),
-                                 cv_solver="schur-cb", cv_scorer=cv_scorer)
-    Wt, at, st = TE.fit_block_cv(Xt, t["Y_train"], t["alphas"], cv_solver="schur-cb",
+                                 cv_precision=jax.lax.Precision.HIGHEST,
+                                 cv_solver=cv_solver, cv_scorer=cv_scorer)
+    Wt, at, st = TE.fit_block_cv(Xt, t["Y_train"], t["alphas"], cv_solver=cv_solver,
                                  cv_scorer=cv_scorer)
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
     # fold means of equal counts; eager JAX divides where jit multiplies by
@@ -239,6 +250,11 @@ def test_fit_block_cv_weights_match_jax(problem, cv_scorer):
     Wj = np.asarray(Wj)
     rel = np.linalg.norm(Wt.numpy() - Wj) / np.linalg.norm(Wj)
     assert rel <= 1e-4, rel
+    if cv_scorer.startswith("fused"):
+        # reassociated through K: the JAX package's bar against its xla scorer
+        sx = TE.fit_block_cv(Xt, t["Y_train"], t["alphas"], cv_solver=cv_solver,
+                             cv_scorer="xla")[2]
+        np.testing.assert_allclose(st.numpy(), sx.numpy(), rtol=0, atol=5e-5)
 
 
 def test_score_families_match_jax(problem):
@@ -323,11 +339,12 @@ def test_rank_counts_match_jax():
 def test_unported_options_raise(problem):
     t = _torch_inputs(problem)
     X = TE.gather_patches(t["X_all"], t["idx"])[:N_TRAIN]
-    for kw in ({"cv_scorer": "pallas"}, {"cv_scorer": "fused-pallas"},
-               {"cv_dtype": torch.bfloat16}, {"cv_unroll": True},
+    for kw in ({"cv_dtype": torch.bfloat16}, {"cv_unroll": True},
                {"cv_alpha_batch": True}):
         with pytest.raises(ValueError, match="not ported"):
             TE.fit_block_cv(X, t["Y_train"], t["alphas"], **kw)
+    with pytest.raises(ValueError, match="unknown cv_scorer"):
+        TE.fit_block_cv(X, t["Y_train"], t["alphas"], cv_scorer="fused-bf16")
     with pytest.raises(ValueError, match="unknown null-gather mode"):
         TE._gather_perm_diag(torch.zeros(1, 2, 2), torch.zeros(1, 2, dtype=torch.long),
                              "scatter")
