@@ -8,13 +8,16 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing one JSON line with its seconds:
 
 1. build   - compile every source under csrc/ with nvcc, one process each,
-             all started together.
+             all started together; one {"ptxas": [...]} line gives each
+             kernel's registers, spills and static shared memory.
 2. kernel  - each kernel against its plain PyTorch version on the card at the
              main path's shapes: max error, CUDA-event median times of the
-             kernel, the plain version and one library yardstick, and the
-             least time the card could take (bound).  The streamed-count
-             kernels must give counts equal to the plain version on
-             integer-valued inputs and accuracies within 1e-5 on Gaussian ones.
+             kernel, the plain version and one library yardstick (and their
+             ratio), and the least time the card could take (bound).  The
+             streamed-count kernels must give counts equal to the plain
+             version on integer-valued inputs and accuracies within 1e-5 on
+             Gaussian ones; streamed_acc_from_inv's Z GEMM and count are also
+             timed apart, each beside its cuBLAS product.
 3. gate    - two runner blocks (B=128) at full width (N=8192 train, 140 test,
              3 imagery, K=750, D=1024, 6 alphas x 5 folds, 100 shuffles),
              once with the shipped "schur-pallas" selection and once with the
@@ -128,6 +131,8 @@ def phase_build() -> dict:
     libs = _cuda_build.build_all(force=True, verbose=True)
     if sorted(libs) != ["chol_inv_panel.cu", "streamed_count.cu"]:
         raise AssertionError(f"unexpected kernel sources {sorted(libs)}")
+    # registers, spills and static shared memory of every kernel, one line
+    emit({"ptxas": _cuda_build.ptxas_report()})
     return {"libraries": {src: os.path.relpath(p, ROOT) for src, p in libs.items()}}
 
 
@@ -181,12 +186,15 @@ def streamed_inputs(name: str, kind: str, seed: int) -> tuple:
     """Main-path-shaped inputs of a streamed scorer, on the card.
 
     The fold patches come as the main path hands them over, a transposed
-    view [B, nv, K] of [nv, B, K].  Integer-valued inputs (in -3..3) keep
+    view [B, nv, K] of [nv, B, K], and U and Z as views of buffers with
+    padded rows (``HM.padded_empty``).  Integer-valued inputs (in -3..3) keep
     every product exact in float32 (|sim| < 2^24), and latent rows of
     sixteen +-1 entries have norm exactly 4, so the plain version's counts
     are exact and must be met exactly.
     """
     import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
 
@@ -194,6 +202,9 @@ def streamed_inputs(name: str, kind: str, seed: int) -> tuple:
         if kind == "integer":
             return torch.randint(-3, 4, shape, generator=gen, device=DEVICE).float()
         return torch.randn(shape, generator=gen, device=DEVICE)
+
+    def draw_k_by_nv():
+        return HM.padded_empty(B, K, NV, DEVICE).copy_(draw(B, K, NV))
 
     if name == "streamed_pairwise_acc":
         if kind == "integer":
@@ -205,8 +216,8 @@ def streamed_inputs(name: str, kind: str, seed: int) -> tuple:
         return draw(B, NV, D), latents
     Xv_b = draw(NV, B, K).permute(1, 0, 2)
     if name == "streamed_acc_from_inv":
-        return Xv_b, draw(B, K, K), draw(B, K, NV)
-    return Xv_b, draw(B, K, NV)
+        return Xv_b, draw(B, K, K), draw_k_by_nv()
+    return Xv_b, draw_k_by_nv()
 
 
 def kernel_streamed(name: str) -> dict:
@@ -252,6 +263,19 @@ def kernel_streamed(name: str) -> dict:
     ms = cuda_time_ms(lambda: kernel(*args), reps=10, warmup=2)
     plain_ms = cuda_time_ms(lambda: plain(*args), reps=10, warmup=2)
     library_ms = cuda_time_ms(library, reps=10, warmup=2)
+    parts = {}
+    if name == "streamed_acc_from_inv":  # its Z GEMM and its count, each beside cuBLAS
+        Z = HM.inv_times_u_on_card(inv, U)
+        parts = {
+            "z_gemm_ms": cuda_time_ms(lambda: HM.inv_times_u_on_card(inv, U), reps=10, warmup=2),
+            "z_gemm_library_ms": cuda_time_ms(lambda: torch.bmm(inv, U), reps=10, warmup=2),
+            "count_ms": cuda_time_ms(lambda: HM.streamed_acc_from_factors(Xv_b, Z),
+                                     reps=10, warmup=2),
+            "count_library_ms": cuda_time_ms(lambda: torch.bmm(Xv_b, Z), reps=10, warmup=2),
+        }
+        parts["z_gemm_library_ratio"] = parts["z_gemm_ms"] / parts["z_gemm_library_ms"]
+        parts["count_library_ratio"] = parts["count_ms"] / parts["count_library_ms"]
+        del Z
     # each input read once, the [B] accuracies written once
     depth = D if name == "streamed_pairwise_acc" else K
     flops = 2.0 * B * NV * NV * depth
@@ -262,9 +286,10 @@ def kernel_streamed(name: str) -> dict:
     flops_ms = flops / FP32_FLOP_PER_S * 1e3
     return {"shape": [list(a.shape) for a in args], "max_abs_err": max_abs,
             "integer_counts_equal": True, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "library_ms": library_ms, "library_ratio": ms / library_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+            "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12, **parts}
 
 
 def planted_problem(coords, seed: int):
@@ -598,7 +623,7 @@ def kernels_line(results: dict) -> dict:
             "name": name, "route": "cuda",
             "source": "multimodal_decoding_tpu_torch/csrc/streamed_count.cu",
             "replaces": replaces, "launches": run.get("launches", {}).get(name),
-            **{k: measured.get(k) for k in keys},
+            **{k: measured.get(k) for k in keys}, "library_ratio": measured.get("library_ratio"),
         })
     return {"kernels": kernels}
 

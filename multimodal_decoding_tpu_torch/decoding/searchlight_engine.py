@@ -150,14 +150,22 @@ def fit_block_cv(
         XtY_tr = XtY_full - _cross(Xv, Yv)
         out = []
         if cv_scorer in _FUSED_SCORERS:
-            U = XtY_tr @ Yv_n.mT  # [B, K, nv], once per fold
+            def k_by_nv(x, y):
+                """x @ y [B, K, nv]; for the streamed kernels into rows that
+                start 16 bytes apart, which they copy 16 bytes at a time."""
+                if cv_scorer == "fused":
+                    return x @ y
+                return torch.matmul(x, y, out=HM.padded_empty(x.shape[0], k, y.shape[-1],
+                                                              x.device))
+
+            U = k_by_nv(XtY_tr, Yv_n.mT)  # [B, K, nv], once per fold
             Xv_b = Xv.permute(1, 0, 2)  # [B, nv, K] view, once per fold
             for a in range(alphas.shape[0]):
                 inv = spd_inverse(G_tr + alphas[a] * eye, method=cv_solver)
                 if cv_scorer == "fused-inv":
                     out.append(HM.streamed_acc_from_inv(Xv_b, inv, U))
                     continue
-                Z = inv @ U  # [B, K, nv]
+                Z = k_by_nv(inv, U)  # [B, K, nv]
                 if cv_scorer == "fused-pallas":
                     out.append(HM.streamed_acc_from_factors(Xv_b, Z))
                 else:

@@ -13,6 +13,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,6 +26,7 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+_ptxas_logs: dict[str, str] = {}  # source -> what ptxas -v said at its last build
 
 
 def sources() -> list[str]:
@@ -66,6 +68,7 @@ def build(source: str, force: bool = False, verbose: bool = False) -> str:
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stderr}")
+        _ptxas_logs[source] = proc.stderr
         if verbose:
             print(f"{source}:\n{proc.stderr}", flush=True)
         os.replace(tmp, lib_path)
@@ -73,6 +76,38 @@ def build(source: str, force: bool = False, verbose: bool = False) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib_path
+
+
+def _demangle(names: list[str]) -> list[str]:
+    tool = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    if not names or not os.path.isfile(tool):
+        return names
+    proc = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                          check=False)
+    out = proc.stdout.splitlines()
+    return out if proc.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_report() -> list[dict]:
+    """Per kernel built in this process: registers, spill bytes and static
+    shared memory, as ``ptxas -v`` reported them (dynamic shared memory is
+    set at launch and not listed)."""
+    rows = []
+    for source, log in sorted(_ptxas_logs.items()):
+        for chunk in re.split(r"Compiling entry function '", log)[1:]:
+            used = re.search(r"Used (\d+) registers", chunk)
+            smem = re.search(r"(\d+) bytes smem", chunk)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            rows.append({
+                "source": source, "kernel": chunk.split("'", 1)[0],
+                "registers": int(used.group(1)) if used else None,
+                "spill_store_bytes": int(spills.group(1)) if spills else None,
+                "spill_load_bytes": int(spills.group(2)) if spills else None,
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            })
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return rows
 
 
 def build_all(force: bool = False, verbose: bool = False) -> dict[str, str]:

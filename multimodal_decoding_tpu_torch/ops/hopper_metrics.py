@@ -17,14 +17,18 @@ ever writing ``sim`` to device memory:
 On a CUDA tensor each launches the kernels of ``csrc/streamed_count.cu``
 (built with ``nvcc`` at first use, loaded with ``ctypes`` by
 ``ops/_cuda_build``); they read their operands through strides, so a
-transposed view costs no copy.  On a CPU tensor each runs its ``*_plain``
-version: a dense ``sim`` by ``torch.matmul``, then
-``M.pairwise_acc_from_sim``.  There is no fallback from one to the other.
+transposed view costs no copy.  The kernels copy an operand 16 bytes at a
+time where its rows are 16-byte aligned, else 8 or 4 bytes, so the port
+allocates the ``[B, K, nv]`` operands U and Z with ``padded_empty``.  On a
+CPU tensor each runs its ``*_plain`` version: a dense ``sim`` by
+``torch.matmul``, then ``M.pairwise_acc_from_sim``.  There is no fallback
+from one to the other.
 
 Precision: the JAX functions take ``precision`` because the TPU's matrix
 unit has pass counts.  These kernels take none: every product is float32
-FMAs with one float32 accumulator per entry, and the diagonal is computed
-with exactly the arithmetic of the off-diagonal entries it is compared with.
+FMAs with one float32 accumulator per entry, and the diagonal is taken from
+the kernel's own diagonal tile, so it is the arithmetic of the entries it is
+compared with.
 
 ``launches`` counts each function's kernel calls on the card (one per call;
 the CPU path does not count); ``reset_launches`` sets them to 0.
@@ -45,9 +49,9 @@ _STRIDED_GEMM = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c
                  ctypes.c_int]
 _SIGNATURES = {
     "streamed_count_launch": _STRIDED_GEMM + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                              ctypes.c_void_p, ctypes.c_void_p],
+                                              ctypes.c_void_p],
     "gemm_store_launch": _STRIDED_GEMM + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_void_p, ctypes.c_void_p],
+                                          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
 }
 
 KERNELS = ("streamed_pairwise_acc", "streamed_acc_from_inv", "streamed_acc_from_factors")
@@ -57,6 +61,14 @@ launches = dict.fromkeys(KERNELS, 0)
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+
+
+def padded_empty(batch: int, rows: int, cols: int, device) -> torch.Tensor:
+    """An uninitialised float32 ``[batch, rows, cols]`` view whose rows start
+    16 bytes apart (a multiple of 4 floats), so the kernels copy it 16 bytes
+    at a time; ``torch.matmul(..., out=view)`` fills it."""
+    ld = -(-cols // 4) * 4
+    return torch.empty((batch, rows, ld), dtype=torch.float32, device=device)[..., :cols]
 
 
 def _unit_rows(latents: torch.Tensor) -> torch.Tensor:
@@ -101,13 +113,26 @@ def _count_on_card(name: str, a: torch.Tensor, a_strides, bm: torch.Tensor, bm_s
     """
     counts = torch.zeros((b,), dtype=torch.int32, device=a.device)
     if b and nv and kd:
-        diag = torch.empty((b, nv), dtype=torch.float32, device=a.device)
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             _call("streamed_count_launch", a.data_ptr(), *a_strides, bm.data_ptr(),
-                  *bm_strides, b, nv, kd, diag.data_ptr(), counts.data_ptr(), stream)
+                  *bm_strides, b, nv, kd, counts.data_ptr(), stream)
         launches[name] += 1
     return M.count_ratio(counts, nv * nv - nv)
+
+
+def inv_times_u_on_card(inv: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Z = inv [B, K, K] @ U [B, K, nv] by the source's GEMM kernel, into a
+    ``padded_empty`` view (the Z GEMM of ``streamed_acc_from_inv``; not
+    counted as a launch on its own)."""
+    b, k, nv = U.shape
+    Z = padded_empty(b, k, nv, U.device)
+    if b and nv and k:
+        with torch.cuda.device(U.device):
+            stream = torch.cuda.current_stream(U.device).cuda_stream
+            _call("gemm_store_launch", inv.data_ptr(), *inv.stride(), U.data_ptr(),
+                  *U.stride(), b, k, nv, k, Z.data_ptr(), Z.stride(1), stream)
+    return Z
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +171,11 @@ def streamed_pairwise_acc(preds: torch.Tensor, latents: torch.Tensor) -> torch.T
     if not _uses_kernel(name, preds, latents):
         return streamed_pairwise_acc_plain(preds, latents)
     b, nv, d = preds.shape
-    y = _unit_rows(latents)
-    # Bm[b, k, j] = y[j, k], shared by every vertex (batch stride 0)
-    return _count_on_card(name, preds, preds.stride(), y, (0, y.stride(1), y.stride(0)),
-                          b, nv, d)
+    # Bm[b, k, j] = y[j, k], shared by every vertex (batch stride 0), stored
+    # [D, nv] with padded rows (a copy of nv x D floats, once per call): the
+    # kernel reads it as it reads Z
+    y_t = padded_empty(1, d, nv, preds.device)[0].copy_(_unit_rows(latents).mT)
+    return _count_on_card(name, preds, preds.stride(), y_t, (0, y_t.stride(0), 1), b, nv, d)
 
 
 def streamed_acc_from_factors(Xv_b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
@@ -169,7 +195,7 @@ def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor,
     """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ (inv [B, K, K] @ U [B, K, nv]).
 
     On the card ``Z = inv U`` is formed by the source's own GEMM kernel into
-    a workspace and read back by the count kernel (one call).
+    a padded workspace and read back by the count kernel (one call).
     """
     name = "streamed_acc_from_inv"
     _check_shapes(name, "Xv_b [B, nv, K], inv [B, K, K] and U [B, K, nv]",
@@ -180,10 +206,5 @@ def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor,
     if not _uses_kernel(name, Xv_b, inv, U):
         return streamed_acc_from_inv_plain(Xv_b, inv, U)
     b, nv, k = Xv_b.shape
-    Z = torch.empty((b, k, nv), dtype=torch.float32, device=Xv_b.device)
-    if b and nv and k:
-        with torch.cuda.device(Xv_b.device):
-            stream = torch.cuda.current_stream(Xv_b.device).cuda_stream
-            _call("gemm_store_launch", inv.data_ptr(), *inv.stride(), U.data_ptr(),
-                  *U.stride(), b, k, nv, k, Z.data_ptr(), stream)
+    Z = inv_times_u_on_card(inv, U)
     return _count_on_card(name, Xv_b, Xv_b.stride(), Z, Z.stride(), b, nv, k)

@@ -69,9 +69,10 @@ def test_chol_inv_panel_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def _streamed_inputs(name, kind, b, nv, k, device):
-    """Inputs of the streamed scorer ``name``; the depth is D = 1024 for
-    streamed_pairwise_acc where ``k`` > 1.  Integer inputs keep every product
-    exact in float32 (latent rows of sixteen +-1 entries have norm exactly 4)."""
+    """Inputs of the streamed scorer ``name`` at depth ``k`` (D for
+    streamed_pairwise_acc, K for the others).  Integer inputs keep every
+    product exact in float32 (latent rows of sixteen +-1 entries have norm
+    exactly 4; of one, 1)."""
     gen = torch.Generator(device=device).manual_seed(b * 7919 + nv * 31 + k)
 
     def draw(*shape):
@@ -80,7 +81,7 @@ def _streamed_inputs(name, kind, b, nv, k, device):
         return torch.randn(shape, generator=gen, device=device)
 
     if name == "streamed_pairwise_acc":
-        d = 1024 if k > 1 else 1
+        d = k
         if kind == "integer":
             keys = torch.rand((nv, d), generator=gen, device=device)
             top = keys.topk(min(16, d), dim=-1).indices
@@ -95,8 +96,12 @@ def _streamed_inputs(name, kind, b, nv, k, device):
 
 
 @pytest.mark.parametrize("kind", ["integer", "gaussian"])
-@pytest.mark.parametrize("b,nv,k", [(1, 1, 1), (1, 7, 750), (128, 7, 1), (128, 256, 750),
-                                    (1, 1639, 750), (128, 1639, 750)])
+@pytest.mark.parametrize("b,nv,k", [
+    (1, 1, 1), (1, 7, 750), (128, 7, 1),
+    # one tile exactly and one past it (128, 256 / 129, 257 rows and columns);
+    # depth below, at and just past a pipeline stage (32 k)
+    (2, 128, 32), (2, 129, 31), (2, 129, 33), (2, 256, 32), (3, 257, 33),
+    (128, 256, 750), (1, 1639, 750), (128, 1639, 750), (128, 1639, 1024)])
 @pytest.mark.parametrize("name", HM.KERNELS)
 def test_streamed_kernel_matches_plain(cuda, name, b, nv, k, kind):
     args = _streamed_inputs(name, kind, b, nv, k, cuda)
@@ -127,6 +132,64 @@ def test_streamed_kernels_read_strided_views(cuda):
                      (HM.streamed_pairwise_acc(view, Xv[:, 0]),
                       HM.streamed_pairwise_acc(view.contiguous(), Xv[:, 0].contiguous()))):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _ints(gen, *shape):
+    return torch.randint(-3, 4, shape, generator=gen, device=gen.device).float()
+
+
+def _like(x, pad):
+    """x's values in a [B, K, n] view whose rows are padded by ``pad`` floats."""
+    b, k, n = x.shape
+    return torch.empty((b, k, n + pad), device=x.device)[..., :n].copy_(x)
+
+
+@pytest.mark.parametrize("kd", [31, 32, 33, 750])
+def test_streamed_kernels_every_copy_width(cuda, kd):
+    """The kernels pick 16-, 8- or 4-byte copies per operand and vertex from
+    its strides and base address, and a [o][k] or [k][o] stage layout from
+    its unit-stride axis: every choice gives the plain version's counts on
+    integer inputs.  Xv_b's vertex stride kd x 4 bytes is 16-byte aligned at
+    kd = 32, 8-byte on odd vertices at 750, 4-byte at 31 and 33."""
+    gen = torch.Generator(device=cuda).manual_seed(kd)
+    b, nv = 4, 257
+    Xv_b = _ints(gen, nv, b, kd).permute(1, 0, 2)
+    Z = _ints(gen, b, kd, nv)  # rows of 1028 bytes: 4-byte copies
+    inv = _ints(gen, b, kd, kd)
+    zs = {"unpadded": Z, "padded": HM.padded_empty(b, kd, nv, cuda).copy_(Z),
+          "rows_8_byte": _like(Z, 1), "k_contiguous": Z.mT.contiguous().mT,
+          "every_other": torch.empty((b, kd, 2 * nv), device=cuda)[..., ::2].copy_(Z)}
+    ref = HM.streamed_acc_from_factors_plain(Xv_b, Z)
+    for layout, z in zs.items():
+        for x in (Xv_b, Xv_b.contiguous()):
+            assert torch.equal(HM.streamed_acc_from_factors(x, z), ref), layout
+    ref = HM.streamed_acc_from_inv_plain(Xv_b, inv, Z)
+    for layout in ("unpadded", "padded", "rows_8_byte", "k_contiguous", "every_other"):
+        assert torch.equal(HM.streamed_acc_from_inv(Xv_b, inv, zs[layout]), ref), layout
+    # preds rows of kd x 4 bytes; unit latents shared by every vertex (batch stride 0)
+    preds, latents = _streamed_inputs("streamed_pairwise_acc", "integer", b, nv, kd, cuda)
+    assert torch.equal(HM.streamed_pairwise_acc(preds, latents),
+                       HM.streamed_pairwise_acc_plain(preds, latents))
+
+
+def test_streamed_counts_equal_on_padded_and_unpadded_z(cuda):
+    """The port pads the rows of Z and U (HM.padded_empty) so the kernels copy
+    them 16 bytes at a time; the counts are those of the unpadded form, bit
+    for bit, on Gaussian inputs too (the same FMAs in the same order)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, nv, k = 8, 1639, 750
+    Xv_b = torch.randn((nv, b, k), generator=gen, device=cuda).permute(1, 0, 2)
+    Z = torch.randn((b, k, nv), generator=gen, device=cuda)
+    inv = torch.randn((b, k, k), generator=gen, device=cuda) / k
+    Zp = HM.padded_empty(b, k, nv, cuda).copy_(Z)
+    assert Zp.stride(1) % 4 == 0 and Z.stride(1) % 4 != 0
+    assert torch.equal(HM.streamed_acc_from_factors(Xv_b, Z),
+                       HM.streamed_acc_from_factors(Xv_b, Zp))
+    assert torch.equal(HM.streamed_acc_from_inv(Xv_b, inv, Z),
+                       HM.streamed_acc_from_inv(Xv_b, inv, Zp))
+    # and the Z GEMM writes the padded view's rows with the same values
+    Z1, Z2 = HM.inv_times_u_on_card(inv, Z), HM.inv_times_u_on_card(inv, Zp)
+    assert Z1.stride(1) % 4 == 0 and torch.equal(Z1, Z2)
 
 
 def test_streamed_kernels_reject_what_they_do_not_take(cuda):
