@@ -39,8 +39,11 @@ def _spd(b, pb, seed, device):
     return X.mT @ X + pb * torch.eye(pb, device=device)
 
 
-@pytest.mark.parametrize("b", [1, 128])
-@pytest.mark.parametrize("pb", [6, 64, 187, 188, 192])
+# batch: one block, around one per SM (132 SMs), and more blocks than SMs;
+# PB: at and around the 32-wide panels and the 4-wide register tiles
+@pytest.mark.parametrize("b", [1, 127, 128, 129, 300])
+@pytest.mark.parametrize("pb", [1, 2, 6, 31, 32, 33, 63, 64, 65, 95, 96, 97, 160, 161,
+                                187, 188, 192])
 def test_chol_inv_panel_kernel_matches_plain(cuda, b, pb):
     A = _spd(b, pb, seed=pb, device=cuda)
     before = H.launches
@@ -51,6 +54,42 @@ def test_chol_inv_panel_kernel_matches_plain(cuda, b, pb):
     rel = float((got - ref).abs().max() / ref.abs().max())
     assert rel <= REL_TOL, rel
     assert torch.all(torch.triu(got, 1) == 0)
+
+
+@pytest.mark.parametrize("alpha", [1e2, 1e7])
+@pytest.mark.parametrize("pb", [187, 188])
+def test_chol_inv_panel_kernel_at_production_alphas(cuda, pb, alpha):
+    """Grams of 8192 rows plus alpha I, the ends of the production alpha grid."""
+    gen = torch.Generator(device=cuda).manual_seed(pb)
+    X = torch.randn((128, 8192, pb), generator=gen, device=cuda)
+    A = X.mT @ X + alpha * torch.eye(pb, device=cuda)
+    got, ref = H.chol_inv_panel(A), H.chol_inv_panel_plain(A)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= REL_TOL, rel
+
+
+@pytest.mark.parametrize("bad", [0, 100, 187])
+def test_chol_inv_panel_kernel_gives_nan_on_a_block_that_is_not_spd(cuda, bad):
+    """No pivoting: a negative pivot (in the first, a middle or the last
+    panel) makes the block's output non-finite; the other blocks are right."""
+    A = _spd(3, 188, seed=2, device=cuda)
+    A[1, bad, bad] = -1.0
+    got = H.chol_inv_panel(A)
+    assert not torch.isfinite(got[1]).all()
+    ref = H.chol_inv_panel_plain(A[[0, 2]])
+    assert float((got[[0, 2]] - ref).abs().max() / ref.abs().max()) <= REL_TOL
+
+
+@pytest.mark.parametrize("pb", [33, 65, 100, 161])
+def test_chol_inv_panel_kernel_is_deterministic(cuda, pb):
+    """Tiles are handed out at run time, yet every entry sums in one fixed
+    order: repeated launches agree bit for bit.  At these PB the shared-memory
+    row stride equals PB rounded up to 4, so a tile that wrote past its row
+    would race with the next row's updates."""
+    A = _spd(128, pb, seed=pb, device=cuda)
+    first = H.chol_inv_panel(A)
+    for _ in range(20):
+        assert torch.equal(H.chol_inv_panel(A), first)
 
 
 def test_chol_inv_panel_kernel_reads_only_the_lower_triangle(cuda):

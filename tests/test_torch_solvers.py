@@ -33,7 +33,9 @@ def _rel(got, ref) -> float:
     return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
 
 
-@pytest.mark.parametrize("b,pb", [(3, 16), (4, 100)])
+# (2, 187) and (2, 188): the four base blocks of the schur-pallas inverse of
+# K = 750, the panel kernel's shapes on the main path
+@pytest.mark.parametrize("b,pb", [(3, 16), (4, 100), (2, 187), (2, 188)])
 def test_chol_inv_panel_plain_matches_jax_kernel(b, pb):
     A = _spd(pb, b, pb)
     ref = np.asarray(JP.chol_inv_panel(A, interpret=True))
