@@ -15,8 +15,9 @@ Phases, each printing one JSON line with its seconds:
              kernel, the plain version and one library yardstick (and their
              ratio, library_ratio = kernel ms / library ms), and the least
              time the card could take (bound).  chol_inv_panel runs at
-             PB = 188, 187 (the schur-pallas base blocks) and 64 (the
-             blocked_spd_inverse panel).  The
+             [128, 188|187] (the searchlight's schur-pallas base blocks),
+             [128, 64] (the blocked_spd_inverse panel) and [6, 103|102] (the
+             whole-brain CV's base blocks).  The
              streamed-count kernels must give counts equal to the plain
              version on integer-valued inputs and accuracies within 1e-5 on
              Gaussian ones; streamed_acc_from_inv's Z GEMM and count are also
@@ -41,9 +42,31 @@ Phases, each printing one JSON line with its seconds:
              only cut from production's 163,842), with --n-neighbors 750,
              the 6-alpha CV and 100 null shuffles; checks the artifacts, the
              planted-signal accuracies and that only chol_inv_panel ran.
+6. wb_gate - the whole-brain selection gate: 16 planted-signal decode problems
+             (n=8192 stimuli, f=16384 features, D=1024, noise swept from strong
+             signal to near-noise), each CV'd by ridge_cv_dual with the strict
+             Cholesky oracle and with the shipped "schur-pallas" selection:
+             the same best alpha on every problem, >= 3 distinct alphas,
+             CV-score and final-score deltas <= 1e-4, and exactly 320
+             chol_inv_panel launches per fast CV (64 base blocks of PB 102/103
+             per fold x 5 folds), every one a contiguous [6, PB, PB] tensor on
+             the card and none through the plain version.
+7. wb      - one whole-brain decode at production scale: N=8192 train, 140
+             test, 3 imagery, V=327,684 (both fsaverage7 hemispheres), D=1024,
+             6 alphas x 5 folds, from host numpy betas (10.7 GB) streamed into
+             the gram; prints seconds per stage (gram and query kernels, CV
+             selection, refit, predictions, score family) and the launches.
+8. wb_cli  - the port's whole-brain CLI in-process on a synthetic subject
+             (N=8192, D=1024, both hemispheres of icosphere(4) with --surface:
+             the vertex count is the only cut): results.p at the contract path
+             with the JAX package's schema, planted-signal accuracies > 0.9, a
+             rerun that skips, 320 chol_inv_panel launches and no other kernel.
 
 On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
-main-path block step down by kernel (torch.profiler).
+main-path block step down by kernel (torch.profiler), and ``--phases
+build,wb_profile`` does the same for the whole-brain stages: the streamed
+gram over 8 column blocks (device busy share: is the host copy in the way?),
+one fast and one strict CV at N=8192.
 
 Then it prints the card's name and power limit (nvidia-smi), one
 {"kernels": [...]} line, and as its last line
@@ -63,8 +86,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "gate", "scorers", "cli")
-EXTRA_PHASES = ("profile",)  # run on request: --phases build,profile
+PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli")
+EXTRA_PHASES = ("profile", "wb_profile")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -88,6 +111,17 @@ NV = 1639  # the largest validation fold of N_TRAIN = 8192 (KFold, 5 splits)
 STREAMED_SCORERS = {"pallas": "streamed_pairwise_acc", "fused": None,
                     "fused-pallas": "streamed_acc_from_factors",
                     "fused-inv": "streamed_acc_from_inv"}
+# the whole-brain decode: 8192 train stimuli, 327,684 vertices (both
+# fsaverage7 hemispheres); its gate's problems have 16,384 features
+WB_V, WB_GATE_F, WB_GATE_REPS = 327_684, 16_384, 16
+WB_CV_DELTA_MAX = 1e-4
+# streamed gram and query kernels vs float64 on sampled rows: float32 sums
+# over 327,684 columns in 16,384-column blocks
+WB_KERNEL_TOL = 1e-5
+WB_NOISE = 24.0  # the decode phase's noise per vertex; the signal's is 1
+# 5 folds x 64 base blocks: n_tr = 6553|6554 halves six times to PB 102|103
+WB_LAUNCHES = 320
+WB_BASE_SHAPES = [(6, 103), (6, 102)]  # chol_inv_panel [A=6, PB, PB] on that path
 STREAMED = [  # (kernel, TPU kernel it replaces)
     ("streamed_pairwise_acc", "multimodal_decoding_tpu/ops/pallas_metrics.py:74"),
     ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
@@ -155,8 +189,8 @@ def kernel_chol_inv_panel() -> list:
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
 
     shapes = []
-    for pb in (188, 187, 64):
-        A = spd_batch(B, pb, ALPHAS[0], seed=pb)
+    for b, pb in [(B, 188), (B, 187), (B, 64), *WB_BASE_SHAPES]:
+        A = spd_batch(b, pb, ALPHAS[0], seed=pb)
         got = H.chol_inv_panel(A)
         ref = H.chol_inv_panel_plain(A)
         torch.cuda.synchronize()
@@ -176,12 +210,12 @@ def kernel_chol_inv_panel() -> list:
         plain_ms = cuda_time_ms(lambda: H.chol_inv_panel_plain(A), warmup=100, per_sample=20)
         library_ms = cuda_time_ms(library, warmup=100, per_sample=20)
         # chol(A) depends on A's lower triangle only; the full L^-1 is written
-        bytes_moved = B * (pb * (pb + 1) // 2 + pb * pb) * 4
-        flops = 2.0 / 3.0 * pb ** 3 * B
+        bytes_moved = b * (pb * (pb + 1) // 2 + pb * pb) * 4
+        flops = 2.0 / 3.0 * pb ** 3 * b
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / FP32_FLOP_PER_S * 1e3
         shapes.append({
-            "shape": [B, pb, pb], "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "shape": [b, pb, pb], "max_abs_err": max_abs, "max_rel_err": max_rel,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_ratio": ms / library_ms, "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
@@ -484,6 +518,65 @@ def phase_scorers() -> dict:
     return out
 
 
+def device_rows(prof) -> list:
+    """(name, device us, calls) of a profile's device-side rows (kernels and
+    copies; operator rows repeat their time), longest first."""
+    import torch
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    return sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
+                  key=lambda r: -r[1])
+
+
+def profiled(fn) -> dict:
+    """Wall ms, device ms, busy share and top device rows of one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    rows = device_rows(prof)
+    device_ms = sum(r[1] for r in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in rows[:10]]}
+
+
+def phase_wb_profile() -> dict:
+    """Where the whole-brain stages' time goes: the streamed gram over 8
+    column blocks of host betas, one fast and one strict CV at N=8192."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops.ridge import ridge_cv_dual, streamed_kernels
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N_TRAIN, 8 * 16384), dtype=np.float32)
+    Xq = rng.standard_normal((N_TEST + N_IMAG, 8 * 16384), dtype=np.float32)
+    streamed_kernels(X[:, :16384], (Xq[:, :16384],), device=DEVICE)  # warm-up
+    out = {"gram_8_blocks": profiled(lambda: streamed_kernels(X, (Xq,), device=DEVICE))}
+    # the host side alone: the 8 train blocks copied into one pinned buffer
+    pinned = torch.empty((N_TRAIN, 16384), dtype=torch.float32, pin_memory=True)
+    host = torch.from_numpy(X)
+    t0 = time.time()
+    for lo in range(0, X.shape[1], 16384):
+        pinned.copy_(host[:, lo:lo + 16384])
+    out["host_copy_gb_per_s"] = X.nbytes / (time.time() - t0) / 1e9
+    out["host_threads"] = torch.get_num_threads()
+    K, _, Y = wb_gate_problem(0, 4.0)
+    for name, solver in (("cv_fast", "schur-pallas"), ("cv_strict", None)):
+        ridge_cv_dual(K, Y[:N_TRAIN], ALPHAS, cv_solver=solver, device=DEVICE)  # warm-up
+        out[name] = profiled(lambda: ridge_cv_dual(K, Y[:N_TRAIN], ALPHAS, cv_solver=solver,
+                                                   device=DEVICE))
+    return out
+
+
 def phase_profile(scorer: str = "xla") -> dict:
     """Where one main-path block step's device time goes (torch.profiler),
     with the CV fold scorer ``scorer``."""
@@ -524,13 +617,7 @@ def phase_profile(scorer: str = "xla") -> dict:
         torch.cuda.synchronize()
         prof_wall = time.time() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side rows only (kernels, copies): operator rows repeat their time
-    kernels = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
-                     key=lambda r: -r[1])
+    kernels = device_rows(prof)
     device_ms = sum(r[1] for r in kernels) / 1e3
     # the port's hand-written kernels, wherever they rank
     port = [{"name": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in kernels
@@ -613,19 +700,314 @@ def phase_cli() -> dict:
                 "launches": launches}
 
 
+class PanelCalls:
+    """Records the panel kernel's calls on the Schur base blocks while it is
+    entered (summed over every entry): each call's shape, whether its tensor
+    was contiguous and on the card, and how often the plain version ran on a
+    card tensor (it must not).  It wraps the functions the solver calls; the
+    kernel's own count is untouched."""
+
+    def __init__(self):
+        self.shapes, self.off_card, self.plain_on_card = {}, 0, 0
+
+    def __enter__(self):
+        from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+        from multimodal_decoding_tpu_torch.ops import solvers as S
+
+        self._kernel, self._plain = S.chol_inv_panel, H.chol_inv_panel_plain
+
+        def kernel(a):
+            key = str(list(a.shape))
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            self.off_card += int(a.device.type != "cuda" or not a.is_contiguous())
+            return self._kernel(a)
+
+        def plain(a):
+            self.plain_on_card += int(a.device.type == "cuda")
+            return self._plain(a)
+
+        S.chol_inv_panel, H.chol_inv_panel_plain = kernel, plain
+        return self
+
+    def __exit__(self, *exc):
+        from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+        from multimodal_decoding_tpu_torch.ops import solvers as S
+
+        S.chol_inv_panel, H.chol_inv_panel_plain = self._kernel, self._plain
+        return False
+
+    def check(self, where: str) -> None:
+        wrong = {k: v for k, v in self.shapes.items()
+                 if k not in {str([b, pb, pb]) for b, pb in WB_BASE_SHAPES}}
+        if wrong or self.off_card or self.plain_on_card:
+            raise AssertionError(f"{where}: panel calls {self.shapes}, {self.off_card} not "
+                                 f"contiguous on the card, {self.plain_on_card} plain on the card")
+
+
+def wb_gate_problem(rep: int, noise: float):
+    """One planted-signal decode problem made on the card: betas X = Y G + noise
+    (G [D, f] / sqrt(D)), the gram of its 8192 train rows and the query
+    kernels of 140 test and 3 imagery rows."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1000 + rep)
+    n_all = N_TRAIN + N_TEST + N_IMAG
+    Y = torch.randn((n_all, D), generator=gen, device=DEVICE)
+    G = torch.randn((D, WB_GATE_F), generator=gen, device=DEVICE) / D ** 0.5
+    X = Y @ G + noise * torch.randn((n_all, WB_GATE_F), generator=gen, device=DEVICE)
+    Xtr = X[:N_TRAIN]
+    return Xtr @ Xtr.T, X[N_TRAIN:] @ Xtr.T, Y
+
+
+def wb_scores(K_q, dual, Y, stim_types) -> dict:
+    """The whole-brain score family of the test and imagery predictions."""
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+
+    preds = K_q @ dual
+    return {k: float(v) for k, v in M.calc_all_pairwise_accuracy_scores(
+        Y[N_TRAIN:N_TRAIN + N_TEST], preds[:N_TEST], stim_types,
+        Y[N_TRAIN + N_TEST:], preds[N_TEST:]).items()}
+
+
+def phase_wb_gate() -> dict:
+    """The whole-brain selection gate (the procedure of the JAX package's
+    benchmarks/check_wb_cv_parity.py, on the port)."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.decoding.whole_brain import default_wb_cv_solver
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops.ridge import ridge_cv_dual
+
+    cv_solver = default_wb_cv_solver(DEVICE)
+    if cv_solver != "schur-pallas":
+        raise AssertionError(f"CUDA whole-brain CV solver is {cv_solver!r}, not 'schur-pallas'")
+    stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
+    noise_scales = np.geomspace(0.5, 32.0, WB_GATE_REPS)  # strong signal -> near-noise
+    problems, strict_s, fast_s = [], 0.0, 0.0
+    calls = PanelCalls()
+    for rep, noise in enumerate(noise_scales):
+        K, K_q, Y = wb_gate_problem(rep, float(noise))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s_idx, s_scores, s_dual = ridge_cv_dual(K, Y[:N_TRAIN], ALPHAS, device=DEVICE)
+        torch.cuda.synchronize()
+        strict_s += time.time() - t0
+        H.reset_launches()
+        HM.reset_launches()
+        t0 = time.time()
+        with calls:
+            f_idx, f_scores, f_dual = ridge_cv_dual(K, Y[:N_TRAIN], ALPHAS,
+                                                    cv_solver=cv_solver, device=DEVICE)
+        torch.cuda.synchronize()
+        fast_s += time.time() - t0
+        launches, streamed = H.launches, sum(HM.launches.values())
+        s_final, f_final = wb_scores(K_q, s_dual, Y, stim_types), wb_scores(K_q, f_dual, Y,
+                                                                            stim_types)
+        problems.append({
+            "noise": float(noise), "strict_alpha": ALPHAS[s_idx], "fast_alpha": ALPHAS[f_idx],
+            "cv_score_delta": float(np.max(np.abs(f_scores - s_scores))),
+            "final_score_delta": max(abs(f_final[k] - s_final[k]) for k in s_final),
+            "strict_cv_scores": s_scores.tolist(), "launches": launches,
+            "acc_captions": s_final["pairwise_acc_captions"],
+            "acc_images": s_final["pairwise_acc_images"]})
+        del K, K_q, Y, s_dual, f_dual
+        if streamed:
+            raise AssertionError(f"problem {rep}: {streamed} streamed-count launches")
+    calls.check("wb_gate")
+    chosen = sorted({p["strict_alpha"] for p in problems})
+    out = {"cv_solver": cv_solver, "reps": len(problems), "n": N_TRAIN, "f": WB_GATE_F, "d": D,
+           "agreement": sum(p["strict_alpha"] == p["fast_alpha"] for p in problems),
+           "distinct_alphas": chosen,
+           "max_cv_score_delta": max(p["cv_score_delta"] for p in problems),
+           "max_final_score_delta": max(p["final_score_delta"] for p in problems),
+           "launches_per_fast_cv": sorted({p["launches"] for p in problems}),
+           "panel_shapes": calls.shapes,
+           "strict_s_per_cv": strict_s / len(problems), "fast_s_per_cv": fast_s / len(problems),
+           "problems": problems}
+    fails = []
+    if out["agreement"] != len(problems):
+        fails.append(f"best alpha differs on {len(problems) - out['agreement']} problems")
+    if len(chosen) < MIN_DISTINCT_ALPHAS:
+        fails.append(f"only {len(chosen)} distinct alphas chosen")
+    if out["max_cv_score_delta"] > WB_CV_DELTA_MAX:
+        fails.append(f"CV-score delta {out['max_cv_score_delta']:.3e} > {WB_CV_DELTA_MAX:g}")
+    if out["max_final_score_delta"] > SCORE_DELTA_MAX:
+        fails.append(f"final-score delta {out['max_final_score_delta']:.3e} > {SCORE_DELTA_MAX:g}")
+    if out["launches_per_fast_cv"] != [WB_LAUNCHES]:
+        fails.append(f"launches per fast CV {out['launches_per_fast_cv']}, not {WB_LAUNCHES}")
+    if fails:
+        raise AssertionError(f"wb_gate: {'; '.join(fails)}: {out}")
+    return out
+
+
+def phase_wb() -> dict:
+    """One whole-brain decode at production scale from host numpy betas."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.decoding.whole_brain import GramCache, decode_single
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+
+    # planted signal made on the card, column block by column block, into host
+    # arrays: X = Y G + WB_NOISE * E with G [D, V] / sqrt(D)
+    t0 = time.time()
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    n_all = N_TRAIN + N_TEST + N_IMAG
+    Y = torch.randn((n_all, D), generator=gen, device=DEVICE)
+    rows = [(0, N_TRAIN), (N_TRAIN, N_TRAIN + N_TEST), (N_TRAIN + N_TEST, n_all)]
+    X_train, X_test, X_imag = (np.empty((hi - lo, WB_V), dtype=np.float32) for lo, hi in rows)
+    for lo in range(0, WB_V, 16384):
+        hi = min(lo + 16384, WB_V)
+        G = torch.randn((D, hi - lo), generator=gen, device=DEVICE) / D ** 0.5
+        X = Y @ G + WB_NOISE * torch.randn((n_all, hi - lo), generator=gen, device=DEVICE)
+        for host, (r0, r1) in zip((X_train, X_test, X_imag), rows):
+            torch.from_numpy(host)[:, lo:hi].copy_(X[r0:r1])
+    Y = Y.cpu().numpy()
+    data_s = time.time() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    H.reset_launches()
+    HM.reset_launches()
+    cache = GramCache(X_train, X_test, X_imag, device=DEVICE)
+    timings = {"gram_s": cache.gram_seconds}
+    with PanelCalls() as calls:
+        best_alpha, test_preds, imag_preds, cv_scores, fit_s = decode_single(
+            X_train, X_test, X_imag, Y[:N_TRAIN], Y[N_TRAIN:N_TRAIN + N_TEST],
+            Y[N_TRAIN + N_TEST:], ALPHAS, gram_cache=cache, timings=timings)
+    launches, streamed = H.launches, sum(HM.launches.values())
+    t1 = time.time()
+    stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
+    scores = {k: float(v) for k, v in M.calc_all_pairwise_accuracy_scores(
+        Y[N_TRAIN:N_TRAIN + N_TEST], test_preds, stim_types, Y[N_TRAIN + N_TEST:], imag_preds,
+        device=DEVICE).items()}
+    torch.cuda.synchronize()
+    timings["score_s"] = time.time() - t1
+    calls.check("wb")
+    # the streamed kernels against float64 host products on 8 train rows
+    rows = np.arange(0, N_TRAIN, N_TRAIN // 8)
+    x64 = X_train[rows].astype(np.float64)
+    kernel_rel_err = max(
+        float(np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max()) for got, ref in (
+            (cache.K[rows][:, rows], x64 @ x64.T),
+            (cache.K_test[:, rows], X_test.astype(np.float64) @ x64.T),
+            (cache.K_imag[:, rows], X_imag.astype(np.float64) @ x64.T)))
+    flops = 2.0 * N_TRAIN * WB_V * (N_TRAIN + N_TEST + N_IMAG)
+    out = {"n_train": N_TRAIN, "n_test": N_TEST, "n_imag": N_IMAG, "v": WB_V, "d": D,
+           "x_train_gb": X_train.nbytes / 1e9, "data_s": data_s, "stage_s": timings,
+           "decode_s": sum(timings.values()), "best_alpha": best_alpha,
+           "cv_mean_scores": cv_scores.tolist(), "scores": scores, "launches": launches,
+           "panel_shapes": calls.shapes, "kernels_max_rel_err_vs_float64": kernel_rel_err,
+           "kernels_flops": flops, "kernels_bound_s": flops / FP32_FLOP_PER_S,
+           "kernels_tflops_per_s": flops / timings["gram_s"] / 1e12,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if launches != WB_LAUNCHES or streamed:
+        raise AssertionError(f"wb: {launches} chol_inv_panel launches (expected {WB_LAUNCHES}), "
+                             f"{streamed} streamed: {out}")
+    if not all(np.isfinite(v) for v in scores.values()) or test_preds.shape != (N_TEST, D):
+        raise AssertionError(f"wb: bad output: {out}")
+    if not kernel_rel_err <= WB_KERNEL_TOL:
+        raise AssertionError(f"wb: gram/query kernels off float64 by {kernel_rel_err:.3e}: {out}")
+    return out
+
+
+def phase_wb_cli() -> dict:
+    """The port's whole-brain CLI on a synthetic subject at full width."""
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch.cli import decode_whole_brain as cli
+    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+    from multimodal_decoding_tpu_torch.data.synthetic import make_synthetic_dataset
+    from multimodal_decoding_tpu_torch.decoding.whole_brain import get_run_str
+    from multimodal_decoding_tpu_torch.io import artifacts
+    from multimodal_decoding_tpu_torch.io.surface import icosphere
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+
+    with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_wb_") as root:
+        t0 = time.time()
+        n_vertices = icosphere(4).n_vertices
+        info = make_synthetic_dataset(root, n_train=N_TRAIN, n_vertices=n_vertices,
+                                      latent_dim=D, model="imagebind")  # both hemispheres
+        config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
+        config.LATENT_FEATURES_DIR = info["features_dir"]
+        config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
+        _load_feature_pickle.cache_clear()
+        dataset_s = time.time() - t0
+
+        out_dir = os.path.join(root, "wb")
+        argv = ["--betas-dir", info["betas_dir"], "--subjects", "sub-01",
+                "--models", "imagebind", "--surface",
+                "--l2-regularization-alphas", *[str(a) for a in ALPHAS],
+                "--out-dir", out_dir, "--device", DEVICE]
+        H.reset_launches()
+        HM.reset_launches()
+        t1 = time.time()
+        with PanelCalls() as calls:
+            results = cli.main(argv)
+        cli_s = time.time() - t1
+        launches, streamed = H.launches, dict(HM.launches)
+        rerun = cli.main(argv)
+
+        path = os.path.join(out_dir, "agnostic", "sub-01", get_run_str(
+            info["betas_dir"], config.LatentFeatsConfig("imagebind", verbose=False),
+            surface=True), config.RESULTS_FILE)
+        if len(results) != 1 or not os.path.isfile(path):
+            raise AssertionError(f"wb_cli: {len(results)} results, results.p at {path}: "
+                                 f"{os.path.isfile(path)}")
+        res = artifacts.load_pickle(path)
+        schema = ["alpha", "model", "subject", "features", "training_mode", "num_voxels",
+                  "stimulus_ids", "stimulus_types", "predictions", "imagery_predictions",
+                  "latents", "imagery_latents"]
+        missing = [k for k in schema if k not in res]
+        accs = {m: res[m] for m in (M.ACC_CAPTIONS, M.ACC_IMAGES, M.ACC_IMAGERY,
+                                    M.ACC_IMAGERY_WHOLE_TEST)}
+        out = {"vertices": int(res["num_voxels"]), "n_train": N_TRAIN, "d": D,
+               "best_alpha": res["alpha"], "accuracies": accs, "launches": launches,
+               "panel_shapes": calls.shapes, "rerun_results": len(rerun),
+               "fit_seconds": res["fit_seconds"], "cli_s": cli_s, "dataset_s": dataset_s}
+        fails = []
+        if missing:
+            fails.append(f"results.p lacks {missing}")
+        if res["predictions"].shape != (N_TEST, D) or not np.all(np.isfinite(res["predictions"])):
+            fails.append(f"predictions {res['predictions'].shape}")
+        if min(accs[M.ACC_CAPTIONS], accs[M.ACC_IMAGES]) <= 0.9:
+            fails.append(f"planted-signal accuracies too low: {accs}")
+        if rerun != []:
+            fails.append("the rerun did not skip")
+        if launches != WB_LAUNCHES or any(streamed.values()):
+            fails.append(f"launches {launches} (expected {WB_LAUNCHES}), streamed {streamed}")
+        calls.check("wb_cli")
+        if fails:
+            raise AssertionError(f"wb_cli: {'; '.join(fails)}: {out}")
+        return out
+
+
 def kernels_line(results: dict) -> dict:
     """The {"kernels": [...]} summary: each kernel's launches on its main path
     (the CLI for chol_inv_panel, its scorer's run for the streamed ones) and
     its measurements from the kernel phase."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    main_shape = results.get("kernel", {}).get("shapes", [{}])[0]
+    shapes = results.get("kernel", {}).get("shapes", [{}])
+    main_shape = shapes[0]
+    wb_keys = (*keys, "max_rel_err", "library_ratio")
     kernels = [{
         "name": "chol_inv_panel", "route": "cuda",
         "source": "multimodal_decoding_tpu_torch/csrc/chol_inv_panel.cu",
         "replaces": "multimodal_decoding_tpu/ops/pallas_solvers.py:133",
         "launches": results.get("cli", {}).get("launches"),
+        "launches_by_path": {"searchlight_cli": results.get("cli", {}).get("launches"),
+                             "whole_brain": results.get("wb", {}).get("launches"),
+                             "whole_brain_cli": results.get("wb_cli", {}).get("launches")},
         **{k: main_shape.get(k) for k in keys}, "max_rel_err": main_shape.get("max_rel_err"),
         "library_ratio": main_shape.get("library_ratio"),
+        "whole_brain_shapes": [{k: m.get(k) for k in wb_keys} for m in shapes
+                               if m.get("shape", [None])[0] != B],
     }]
     scorer_of = {kernel: scorer for scorer, kernel in STREAMED_SCORERS.items() if kernel}
     for name, replaces in STREAMED:
@@ -672,7 +1054,8 @@ def main() -> int:
     for name in phases:
         t0 = time.time()
         out = {"build": phase_build, "kernel": phase_kernel, "gate": phase_gate,
-               "scorers": phase_scorers, "cli": phase_cli,
+               "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
+               "wb": phase_wb, "wb_cli": phase_wb_cli, "wb_profile": phase_wb_profile,
                "profile": lambda: phase_profile(args.scorer)}[name]()
         results[name] = out
         emit({"phase": name, "seconds": time.time() - t0, **out})

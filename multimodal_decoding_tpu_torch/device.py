@@ -9,6 +9,7 @@ CV alpha selection and the 1e-4 final-score parity with the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -37,3 +38,19 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def as_float32(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor.
+
+    A tensor stays on its device unless ``device`` names one; anything else
+    (numpy arrays, JAX outputs) goes to ``resolve_device(device)``.  A
+    read-only array is copied, since tensors are writable.
+    """
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32) if device is None else x.to(resolve_device(device),
+                                                              torch.float32)
+    x = np.asarray(x, dtype=np.float32)
+    if not x.flags.writeable:
+        x = x.copy()
+    return torch.as_tensor(x, device=resolve_device(device))

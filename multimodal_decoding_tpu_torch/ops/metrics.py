@@ -1,11 +1,13 @@
 """Pairwise cosine-ranking accuracy on batched tensors.
 
-Port of the subset of ``multimodal_decoding_tpu/ops/metrics.py`` that the
-searchlight slice calls: sklearn-style ``standardize``, ``cosine_distances``
-and the three pairwise-accuracy forms, all batched over leading axes.  The
-metric-name constants are the reference's public API (its eval.py:9-79) and
-are kept verbatim, so result pickles keyed by them are interchangeable with
-the JAX package's.
+Port of ``multimodal_decoding_tpu/ops/metrics.py`` up to its score family:
+sklearn-style ``standardize``/``fit_standardizer``, cosine and euclidean
+distances, the pairwise-accuracy forms (batched over leading axes) and the
+per-modality, cross-modal and imagery score family of the whole-brain
+decoder.  RSA and CSLS (the analyses' metrics) are not ported yet (ROADMAP
+A12).  The metric-name constants are the reference's public API (its
+eval.py:9-79) and are kept verbatim, so result pickles keyed by them are
+interchangeable with the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,9 +16,12 @@ import numpy as np
 import torch
 
 from multimodal_decoding_tpu_torch.config import (
+    CAPTION,
+    IMAGE,
     METRIC_CAPTIONS_DIFF_MOD_AGNO_MOD_SPECIFIC,
     METRIC_IMAGES_DIFF_MOD_AGNO_MOD_SPECIFIC,
 )
+from multimodal_decoding_tpu_torch.device import as_float32
 
 # ---------------------------------------------------------------------------
 # Metric name constants (reference: eval.py:9-79)
@@ -124,10 +129,16 @@ def standardize(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
 
     ddof=0 std; zero-variance columns are left unscaled (scale -> 1).
     """
+    mean, scale = fit_standardizer(x, axis)
+    return (x - mean) / scale
+
+
+def fit_standardizer(x: torch.Tensor, axis: int = -2):
+    """Return (mean, scale) with sklearn semantics; apply via (v - mean)/scale."""
     mean = torch.mean(x, dim=axis, keepdim=True)
     std = torch.std(x, dim=axis, keepdim=True, correction=0)
     scale = torch.where(std == 0.0, torch.ones_like(std), std)
-    return (x - mean) / scale
+    return mean, scale
 
 
 def cosine_distances(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
@@ -135,6 +146,23 @@ def cosine_distances(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor
     p = preds / torch.linalg.vector_norm(preds, dim=-1, keepdim=True)
     l = latents / torch.linalg.vector_norm(latents, dim=-1, keepdim=True)
     return 1.0 - p @ l.mT
+
+
+def euclidean_distances(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance matrix via |p|^2 - 2<p,l> + |l|^2 (one matrix product)."""
+    p_sq = torch.sum(preds * preds, dim=-1)[..., :, None]
+    l_sq = torch.sum(latents * latents, dim=-1)[..., None, :]
+    return torch.sqrt(torch.clamp(p_sq - 2.0 * (preds @ latents.mT) + l_sq, min=0.0))
+
+
+def get_distance_matrix(predictions, originals, metric: str = "cosine", device=None):
+    """Metric dispatch (parity surface of eval.py:103-104)."""
+    p, o = as_float32(predictions, device), as_float32(originals, device)
+    if metric == "cosine":
+        return cosine_distances(p, o)
+    if metric == "euclidean":
+        return euclidean_distances(p, o)
+    raise ValueError(f"unsupported distance metric: {metric}")
 
 
 def pairwise_acc_from_dist(dist: torch.Tensor) -> torch.Tensor:
@@ -165,3 +193,123 @@ def pairwise_acc_from_sim(sim: torch.Tensor) -> torch.Tensor:
     diag = torch.diagonal(sim, dim1=-2, dim2=-1)[..., :, None]
     counts = torch.sum(sim < diag, dim=(-2, -1))
     return count_ratio(counts, n * m - min(n, m))
+
+
+def pairwise_accuracy(
+    latents,
+    predictions,
+    standardize_predictions: bool = False,
+    standardize_latents: bool = False,
+    metric: str = "cosine",
+    device=None,
+) -> torch.Tensor:
+    """Pairwise 2-AFC accuracy (reference: eval.py:116-123).
+
+    Tensors stay on their device; arrays go to ``device`` (``None``: cuda).
+    """
+    latents, predictions = as_float32(latents, device), as_float32(predictions, device)
+    if standardize_predictions:
+        predictions = standardize(predictions)
+    if standardize_latents:
+        latents = standardize(latents)
+    return pairwise_acc_from_dist(get_distance_matrix(predictions, latents, metric))
+
+
+# ---------------------------------------------------------------------------
+# Score family (reference: eval.py:126-181)
+# ---------------------------------------------------------------------------
+
+
+def calc_imagery_pairwise_accuracy_scores(
+    imagery_latents,
+    imagery_predictions,
+    additional_latents,
+    standardize_predictions: bool = False,
+    standardize_latents: bool = False,
+    test_set_preds=None,
+    device=None,
+) -> dict:
+    """Imagery scored against its own latents and against imagery+test latents.
+
+    Mirrors eval.py:161-181 including the optional normalisation of imagery
+    predictions with statistics from (imagery + test) predictions.
+    """
+    imagery_latents = as_float32(imagery_latents, device)
+    imagery_predictions = as_float32(imagery_predictions, device)
+    additional_latents = as_float32(additional_latents, device)
+    results = {}
+
+    if test_set_preds is not None:
+        all_preds = torch.cat((imagery_predictions, as_float32(test_set_preds, device)), dim=-2)
+        mean, scale = fit_standardizer(all_preds)
+        imagery_predictions = (imagery_predictions - mean) / scale
+        standardize_predictions = False
+
+    results[ACC_IMAGERY] = pairwise_accuracy(
+        imagery_latents, imagery_predictions, standardize_predictions, standardize_latents
+    )
+
+    target_latents = torch.cat((imagery_latents, additional_latents), dim=-2)
+    results[ACC_IMAGERY_WHOLE_TEST] = pairwise_accuracy(
+        target_latents, imagery_predictions, standardize_predictions, standardize_latents
+    )
+    return results
+
+
+def calc_all_pairwise_accuracy_scores(
+    latents,
+    predictions,
+    stim_types=None,
+    imagery_latents=None,
+    imagery_predictions=None,
+    standardize_predictions: bool = True,
+    standardize_latents: bool = False,
+    norm_imagery_preds_with_test_preds: bool = False,
+    comp_cross_decoding_scores: bool = True,
+    device=None,
+) -> dict:
+    """Per-modality + cross-modal + imagery score family (eval.py:126-158).
+
+    ``stim_types`` is a host-side numpy array of strings ('caption'/'image');
+    its masks index the tensors from the host, as in the JAX package.  The
+    scores are 0-d float32 tensors on the inputs' device.
+    """
+    latents, predictions = as_float32(latents, device), as_float32(predictions, device)
+    stim_types = np.asarray(stim_types)
+    results = {}
+    for modality, acc_metric_name in zip([CAPTION, IMAGE], [ACC_CAPTIONS, ACC_IMAGES]):
+        sel = torch.as_tensor(stim_types == modality, device=latents.device)
+        results[acc_metric_name] = pairwise_accuracy(
+            latents[..., sel, :],
+            predictions[..., sel, :],
+            standardize_predictions,
+            standardize_latents,
+        )
+
+    if comp_cross_decoding_scores:
+        for mod_preds, mod_latents, acc_metric_name in zip(
+            [CAPTION, IMAGE],
+            [IMAGE, CAPTION],
+            [ACC_CROSS_CAPTIONS_TO_IMAGES, ACC_CROSS_IMAGES_TO_CAPTIONS],
+        ):
+            lat_sel = torch.as_tensor(stim_types == mod_latents, device=latents.device)
+            pred_sel = torch.as_tensor(stim_types == mod_preds, device=latents.device)
+            results[acc_metric_name] = pairwise_accuracy(
+                latents[..., lat_sel, :],
+                predictions[..., pred_sel, :],
+                standardize_predictions,
+                standardize_latents,
+            )
+
+    if imagery_latents is not None:
+        results.update(
+            calc_imagery_pairwise_accuracy_scores(
+                as_float32(imagery_latents, latents.device),
+                as_float32(imagery_predictions, latents.device),
+                latents,
+                standardize_predictions,
+                standardize_latents,
+                test_set_preds=predictions if norm_imagery_preds_with_test_preds else None,
+            )
+        )
+    return results

@@ -33,9 +33,10 @@ def _port_files():
 def test_every_port_module_is_found():
     mods = _port_modules()
     for expected in ("device", "interop", "config", "ops._cuda_build", "ops.hopper_solvers",
-                     "ops.hopper_metrics", "ops.solvers",
+                     "ops.hopper_metrics", "ops.solvers", "ops.ridge", "ops.metrics",
                      "decoding.searchlight_engine", "parallel.searchlight_runner",
-                     "cli.run_searchlight", "io.surface", "data.synthetic"):
+                     "cli.run_searchlight", "io.surface", "data.synthetic",
+                     "decoding.whole_brain", "cli.decode_whole_brain"):
         assert f"{port.__name__}.{expected}" in mods
 
 
@@ -78,10 +79,17 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
     """Without a GPU and without an explicit device="cpu", every entry point raises."""
     import numpy as np
 
+    from multimodal_decoding_tpu_torch.cli import decode_whole_brain as wb_cli
     from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
     from multimodal_decoding_tpu_torch.decoding import searchlight as S
+    from multimodal_decoding_tpu_torch.decoding import whole_brain as W
     from multimodal_decoding_tpu_torch.device import resolve_device
-    from multimodal_decoding_tpu_torch.interop import block_inputs_from_numpy
+    from multimodal_decoding_tpu_torch.interop import (
+        block_inputs_from_numpy,
+        gram_cache_from_numpy,
+    )
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+    from multimodal_decoding_tpu_torch.ops import ridge as R
     from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -102,5 +110,28 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         S.run(S.SearchlightConfig(betas_dir=str(tmp_path), mesh_coords={}, n_neighbors=3))
     assert cli.get_args([]).device == "cuda"
     assert S.default_cv_solver() == "schur-cb"
+
+    # the whole-brain decoder: its CLI, run, the gram, the CV and the scores
+    wb_argv = ["--betas-dir", str(tmp_path), "--subjects", "sub-01", "--out-dir",
+               str(tmp_path / "wb")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wb_cli.main(wb_argv)
+    assert wb_cli.get_args(wb_argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.run(W.WholeBrainConfig(betas_dir=str(tmp_path), out_dir=str(tmp_path / "wb")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.GramCache(x, x[:4], x[:3])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.default_wb_cv_solver()
+    assert W.default_wb_cv_solver("cpu") is None
+    K = x @ x.T
+    for call in (lambda: R.gram_matrix(x), lambda: R.cross_matrix(x[:4], x),
+                 lambda: R.ridge_cv_dual(K, y, [1.0, 10.0], n_splits=2),
+                 lambda: R.dual_ridge_fit(K, y, 1.0), lambda: R.dual_ridge_predict(K, y),
+                 lambda: gram_cache_from_numpy(K, K[:4], K[:3]),
+                 lambda: M.pairwise_accuracy(y, y)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert R.ridge_cv_dual(K, y, [1.0, 10.0], n_splits=2, device="cpu")[2].device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

@@ -241,3 +241,56 @@ def test_streamed_kernels_reject_what_they_do_not_take(cuda):
         HM.streamed_acc_from_factors(x, torch.zeros((2, 5, 3), device=cuda))
     with pytest.raises(ValueError, match="several devices"):
         HM.streamed_acc_from_inv(x, torch.zeros((2, 3, 3)), torch.zeros((2, 3, 5), device=cuda))
+
+
+@pytest.mark.parametrize("alpha", [1e2, 1e7])
+@pytest.mark.parametrize("pb", [102, 103])
+def test_chol_inv_panel_kernel_at_whole_brain_shapes(cuda, pb, alpha):
+    """[6, PB, PB]: the whole-brain CV's Schur base blocks (6 alphas; PB 102
+    and 103, neither a multiple of 4), grams of 8192 rows plus alpha I."""
+    gen = torch.Generator(device=cuda).manual_seed(pb)
+    X = torch.randn((6, 8192, pb), generator=gen, device=cuda)
+    A = X.mT @ X + alpha * torch.eye(pb, device=cuda)
+    before = H.launches
+    got = H.chol_inv_panel(A)
+    assert H.launches == before + 1
+    ref = H.chol_inv_panel_plain(A)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= REL_TOL, rel
+    assert torch.all(torch.triu(got, 1) == 0)
+
+
+def test_whole_brain_cv_on_schur_pallas_selects_as_the_strict_path(cuda):
+    """ridge_cv_dual at n = 8192 on the card: the "schur-pallas" selection
+    picks the strict Cholesky path's alpha, with 64 panel launches a fold
+    (n_tr = 6553|6554 halves six times to base blocks of PB 102|103)."""
+    from multimodal_decoding_tpu_torch.ops.ridge import ridge_cv_dual
+
+    alphas = [1e2, 1e3, 1e4, 1e5, 1e6, 1e7]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    Y = torch.randn((8192, 128), generator=gen, device=cuda)
+    G = torch.randn((128, 2048), generator=gen, device=cuda) / 128 ** 0.5
+    X = Y @ G + 2.0 * torch.randn((8192, 2048), generator=gen, device=cuda)
+    K = X @ X.T
+    strict_idx, strict_scores, _ = ridge_cv_dual(K, Y, alphas, device=cuda)
+    H.reset_launches()
+    idx, scores, _ = ridge_cv_dual(K, Y, alphas, cv_solver="schur-pallas", device=cuda)
+    assert H.launches == 5 * 64
+    assert idx == strict_idx
+    assert abs(scores - strict_scores).max() <= 1e-4
+
+
+def test_streamed_gram_and_query_kernels_on_the_card(cuda):
+    """The pinned, double-buffered upload of host column blocks (a ragged last
+    block, more blocks than buffers) gives the products of the whole arrays."""
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch.ops.ridge import streamed_kernels
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((300, 5 * 256 + 77), dtype=np.float32)
+    Xq = rng.standard_normal((7, X.shape[1]), dtype=np.float32)
+    K, (Kq,) = streamed_kernels(X, (Xq,), block_cols=256, device=cuda)
+    x64 = X.astype(np.float64)
+    for got, ref in ((K, x64 @ x64.T), (Kq, Xq.astype(np.float64) @ x64.T)):
+        assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() <= 1e-5

@@ -124,3 +124,114 @@ def test_kfold_indices_match_jax(n, k):
     for (tr_t, va_t), (tr_j, va_j) in zip(TR.kfold_indices(n, k), JR.kfold_indices(n, k)):
         np.testing.assert_array_equal(tr_t, tr_j)
         np.testing.assert_array_equal(va_t, va_j)
+
+
+# ---------------------------------------------------------------------------
+# The whole-brain score family
+# ---------------------------------------------------------------------------
+
+
+def _min_cosine_gap(preds, latents) -> float:
+    """Smallest float64 gap between a row's diagonal and off-diagonal cosine
+    distances: the inputs are tie-free when it is well above float32 noise."""
+    p = preds / np.linalg.norm(preds, axis=-1, keepdims=True)
+    l = latents / np.linalg.norm(latents, axis=-1, keepdims=True)
+    d = 1.0 - p.astype(np.float64) @ l.T.astype(np.float64)
+    k = min(d.shape)
+    gaps = np.abs(d[:k] - np.diagonal(d)[:, None])
+    gaps[np.arange(k), np.arange(k)] = np.inf
+    return float(gaps.min())
+
+
+def _score_inputs(seed: int = 7, n: int = 24, d: int = 16, n_imag: int = 3):
+    rng = np.random.RandomState(seed)
+    latents = rng.randn(n, d).astype(np.float32)
+    preds = (latents + 1.5 * rng.randn(n, d)).astype(np.float32) * 3.0 + 0.5
+    imag_latents = rng.randn(n_imag, d).astype(np.float32)
+    imag_preds = (imag_latents + rng.randn(n_imag, d)).astype(np.float32)
+    stim_types = np.array(["caption", "image"] * (n // 2))[rng.permutation(n)]
+    return latents, preds, imag_latents, imag_preds, stim_types
+
+
+def test_fit_standardizer_matches_jax():
+    x = np.random.RandomState(5).randn(2, 9, 4).astype(np.float32)
+    x[..., 1] = 0.0
+    ref_m, ref_s = jax.jit(JM.fit_standardizer)(x)
+    got_m, got_s = TM.fit_standardizer(_t(x))
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(ref_m), rtol=0, atol=FLOAT_TOL)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=0, atol=FLOAT_TOL)
+    np.testing.assert_array_equal(got_s.numpy()[..., 1], 1.0)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_distance_matrix_matches_jax(metric):
+    rng = np.random.RandomState(6)
+    p = rng.randn(2, 5, 7).astype(np.float32)
+    l = rng.randn(6, 7).astype(np.float32)
+    ref = np.asarray(JM.get_distance_matrix(p, l, metric))
+    got = TM.get_distance_matrix(p, l, metric, device="cpu")
+    assert got.shape == ref.shape
+    # euclidean distances are ~4 here: 1e-6 relative
+    np.testing.assert_allclose(got.numpy(), ref, rtol=FLOAT_TOL, atol=FLOAT_TOL)
+    with pytest.raises(ValueError, match="unsupported distance metric"):
+        TM.get_distance_matrix(p, l, "cityblock", device="cpu")
+
+
+@pytest.mark.parametrize("std_preds,std_lat", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_pairwise_accuracy_matches_jitted_jax(metric, std_preds, std_lat):
+    latents, preds, *_ = _score_inputs()
+    assert _min_cosine_gap(preds, latents) > 1e-4
+    ref = np.asarray(jax.jit(lambda l, p: JM.pairwise_accuracy(
+        l, p, std_preds, std_lat, metric))(latents, preds))
+    got = TM.pairwise_accuracy(latents, preds, std_preds, std_lat, metric, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("norm_imagery", [False, True])
+@pytest.mark.parametrize("std_preds", [False, True])
+@pytest.mark.parametrize("imagery", [False, True])
+def test_calc_all_pairwise_accuracy_scores_match_jitted_jax(imagery, std_preds, norm_imagery):
+    """Bit-equal on tie-free inputs, captions and images interleaved."""
+    latents, preds, imag_l, imag_p, stim_types = _score_inputs()
+    kwargs = dict(standardize_predictions=std_preds,
+                  norm_imagery_preds_with_test_preds=norm_imagery)
+
+    def jax_scores(l, p, il, ip):
+        return JM.calc_all_pairwise_accuracy_scores(
+            l, p, stim_types, il if imagery else None, ip if imagery else None, **kwargs)
+
+    ref = jax.jit(jax_scores)(latents, preds, imag_l, imag_p)
+    got = TM.calc_all_pairwise_accuracy_scores(
+        latents, preds, stim_types, imag_l if imagery else None,
+        imag_p if imagery else None, device="cpu", **kwargs)
+    assert set(got) == set(ref)
+    assert (TM.ACC_IMAGERY in got) == imagery
+    for name in ref:
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(ref[name]), err_msg=name)
+
+
+def test_calc_all_scores_take_tensors_on_their_device():
+    """Tensors stay where they are; arrays go to ``device`` (cuda unless
+    named, so without a GPU they need device="cpu")."""
+    latents, preds, imag_l, imag_p, stim_types = _score_inputs()
+    got = TM.calc_all_pairwise_accuracy_scores(_t(latents), _t(preds), stim_types,
+                                               _t(imag_l), _t(imag_p))
+    ref = TM.calc_all_pairwise_accuracy_scores(latents, preds, stim_types, imag_l, imag_p,
+                                               device="cpu")
+    assert all(got[k].device.type == "cpu" and torch.equal(got[k], ref[k]) for k in ref)
+
+
+def test_eager_jax_scores_round_counts_by_true_division():
+    """The JAX whole-brain decoder scores eagerly, where counts / n is a true
+    division; under jit (the JAX block steps, and the port's count_ratio)
+    it is a product with the float32 reciprocal.  They differ by at most one
+    ulp (recorded in ROADMAP section C)."""
+    latents, preds, imag_l, imag_p, stim_types = _score_inputs()
+    eager = JM.calc_all_pairwise_accuracy_scores(latents, preds, stim_types, imag_l, imag_p)
+    got = TM.calc_all_pairwise_accuracy_scores(latents, preds, stim_types, imag_l, imag_p,
+                                               device="cpu")
+    for name in eager:
+        e, g = np.float32(eager[name]), got[name].numpy()
+        assert abs(g - e) <= np.spacing(e), name
