@@ -61,6 +61,24 @@ Phases, each printing one JSON line with its seconds:
              the vertex count is the only cut): results.p at the contract path
              with the JAX package's schema, planted-signal accuracies > 0.9, a
              rerun that skips, 320 chol_inv_panel launches and no other kernel.
+9. stats   - the group statistics at production width: seeded null scores
+             [6 subjects, 100 nulls, 163,842 vertices] of the 4 member metrics
+             of mod_agnostic_and_cross on both hemispheres (with NaN and
+             degenerate vertices), swept through the port's null sweep
+             (ops/stats.null_min_t_sweep) over the first 10,000 group
+             permutations in chunks of 256: seconds a hemisphere, its bound and
+             share of it, peak device memory; 8 sampled permutations held to a
+             float64 numpy t-map (equal NaN patterns, max |dt| <= 1e-5 max |t|);
+             host TFCE (native/tfce.cpp) over the first 512 min-maps of each
+             hemisphere on icosphere(7) edges: ms a map, threads, projection.
+10. study  - the port's study CLI in-process on 6 synthetic planted-signal
+             subjects (both hemispheres of icosphere(3), 256 train stimuli,
+             K=375 neighbours, D=1024, 100 nulls each, the 6-alpha CV): every
+             artifact at the JAX package's paths, significant vertices, a
+             rerun that skips every stage, the exact chol_inv_panel launch
+             count of the Schur recursion at K, no streamed-count launch, and
+             the permutation CLI on the same searchlight outputs giving the
+             same null_max and p-values.
 
 On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
 main-path block step down by kernel (torch.profiler), and ``--phases
@@ -86,7 +104,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli")
+PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli", "stats",
+          "study")
 EXTRA_PHASES = ("profile", "wb_profile")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
@@ -122,6 +141,17 @@ WB_NOISE = 24.0  # the decode phase's noise per vertex; the signal's is 1
 # 5 folds x 64 base blocks: n_tr = 6553|6554 halves six times to PB 102|103
 WB_LAUNCHES = 320
 WB_BASE_SHAPES = [(6, 103), (6, 102)]  # chol_inv_panel [A=6, PB, PB] on that path
+# group statistics at production width: subjects, nulls a subject, fsaverage7
+# vertices a hemisphere, group permutations and the sweep's chunk
+ST_S, ST_P, ST_V, ST_GROUP, ST_CHUNK = 6, 100, 163_842, 10_000, 256
+ST_ICO = 7  # icosphere(7) has fsaverage7's 163,842 vertices
+ST_CHECK_PERMS, ST_TFCE_MAPS = 8, 512
+ST_T_TOL = 1e-5  # max |t - t_float64| / max |t_float64|
+# the study: 6 subjects on icosphere(3) (642 vertices a hemisphere), 256 train
+# stimuli, K = 375 (base blocks 188|187, the searchlight's own panel shapes)
+SD_SUBJECTS, SD_ICO, SD_N_TRAIN, SD_K = 6, 3, 256, 375
+SD_GROUP, SD_P_THRESHOLD = 10_000, 1e-3  # the least p of 10,000 is 1e-4
+SD_FOLDS = 5
 STREAMED = [  # (kernel, TPU kernel it replaces)
     ("streamed_pairwise_acc", "multimodal_decoding_tpu/ops/pallas_metrics.py:74"),
     ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
@@ -166,11 +196,17 @@ def spd_batch(b: int, pb: int, alpha: float, seed: int):
 
 
 def phase_build() -> dict:
-    from multimodal_decoding_tpu_torch.ops import _cuda_build
+    from concurrent.futures import ThreadPoolExecutor
 
-    libs = _cuda_build.build_all(force=True, verbose=True)
-    if sorted(libs) != ["chol_inv_panel.cu", "streamed_count.cu"]:
-        raise AssertionError(f"unexpected kernel sources {sorted(libs)}")
+    from multimodal_decoding_tpu_torch.ops import _cuda_build, _host_build
+
+    # the host TFCE library (g++) builds beside the nvcc builds
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        tfce = pool.submit(_host_build.build, "tfce.cpp", True)
+        libs = _cuda_build.build_all(force=True, verbose=True)
+        libs["tfce.cpp"] = tfce.result()
+    if sorted(libs) != ["chol_inv_panel.cu", "streamed_count.cu", "tfce.cpp"]:
+        raise AssertionError(f"unexpected sources {sorted(libs)}")
     # registers, spills and static shared memory of every kernel, one line
     emit({"ptxas": _cuda_build.ptxas_report()})
     return {"libraries": {src: os.path.relpath(p, ROOT) for src, p in libs.items()}}
@@ -736,9 +772,9 @@ class PanelCalls:
         S.chol_inv_panel, H.chol_inv_panel_plain = self._kernel, self._plain
         return False
 
-    def check(self, where: str) -> None:
+    def check(self, where: str, shapes=WB_BASE_SHAPES) -> None:
         wrong = {k: v for k, v in self.shapes.items()
-                 if k not in {str([b, pb, pb]) for b, pb in WB_BASE_SHAPES}}
+                 if k not in {str([b, pb, pb]) for b, pb in shapes}}
         if wrong or self.off_card or self.plain_on_card:
             raise AssertionError(f"{where}: panel calls {self.shapes}, {self.off_card} not "
                                  f"contiguous on the card, {self.plain_on_card} plain on the card")
@@ -988,6 +1024,357 @@ def phase_wb_cli() -> dict:
         return out
 
 
+def null_stacks(seed: int, n_members: int) -> list:
+    """Seeded null scores [S, P, V] of each member metric, made on the card:
+    accuracies around chance; NaN at 1% of each subject's vertices (the
+    nan_locations scatter, shared by the subject's member metrics); degenerate
+    vertices (every subject equal) in every member at 0.5% of the vertices and
+    in the first member only at another 0.5%."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cols = torch.randperm(ST_V, generator=gen, device=DEVICE)
+    flat_all, flat_first = cols[:ST_V // 200], cols[ST_V // 200:ST_V // 100]
+    nan_cols = [torch.randperm(ST_V, generator=gen, device=DEVICE)[:ST_V // 100]
+                for _ in range(ST_S)]
+    stacks = []
+    for i in range(n_members):
+        x = 0.5 + 0.05 * torch.randn((ST_S, ST_P, ST_V), generator=gen, device=DEVICE)
+        x[:, :, flat_all] = 0.75
+        if i == 0:
+            x[:, :, flat_first] = 0.625
+        for s, c in enumerate(nan_cols):
+            x[s, :, c] = float("nan")
+        stacks.append(x)
+    return stacks
+
+
+def t_map_float64(x, popmean: float):
+    """[C, S, V] float32 scores -> [C, V] float64 t-maps, NaN where every
+    subject is equal (the guard on the raw scores) or a score is NaN."""
+    import numpy as np
+
+    d = x.astype(np.float64) - popmean
+    mean = d.mean(1)
+    var = ((d - mean[:, None]) ** 2).sum(1) / (x.shape[1] - 1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = mean / np.sqrt(var / x.shape[1])
+    return np.where(np.all(x == x[:, :1], axis=1), np.nan, t)
+
+
+def phase_stats() -> dict:
+    """The group-statistics null at production width: the sweep on the card,
+    TFCE on the host."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.config import METRIC_MOD_AGNOSTIC_AND_CROSS
+    from multimodal_decoding_tpu_torch.io.surface import edge_lengths, icosphere
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+    from multimodal_decoding_tpu_torch.ops import stats as S
+    from multimodal_decoding_tpu_torch.ops import tfce as T
+
+    members = S.COMPOSITE_METRICS[METRIC_MOD_AGNOSTIC_AND_CROSS]
+    popmeans = [M.CHANCE_VALUES[m] for m in members]
+    perms = S.group_permutations(ST_P, ST_S, ST_GROUP)
+    sampled = np.linspace(0, ST_GROUP - 1, ST_CHECK_PERMS).astype(np.int64)
+    # HBM traffic of the sweep as written: per permutation and member, S
+    # gathered rows read and one t-map row written
+    sweep_bytes = ST_GROUP * len(members) * (ST_S + 1) * ST_V * 4
+    # each input read once: every member's stack, and the min-maps written once
+    once_bytes = (len(members) * ST_S * ST_P + ST_GROUP) * ST_V * 4
+    bound_s = sweep_bytes / HBM_BYTES_PER_S
+    t0 = time.time()
+    mesh = icosphere(ST_ICO)
+    edges, lengths = edge_lengths(mesh)
+    mesh_s = time.time() - t0
+    if mesh.n_vertices != ST_V:
+        raise AssertionError(f"icosphere({ST_ICO}) has {mesh.n_vertices} vertices, not {ST_V}")
+
+    hemis, fails = {}, []
+    for h, hemi in enumerate(("left", "right")):
+        stacks = null_stacks(11 + h, len(members))
+        S.null_min_t_maps(stacks, perms[:ST_CHUNK], popmeans)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kept, checked = [], []
+        t0 = time.time()
+        for start, t_min in S.null_min_t_sweep(stacks, perms, popmeans, ST_CHUNK):
+            if start < ST_TFCE_MAPS:
+                kept.append(t_min)
+            inside = sampled[(sampled >= start) & (sampled < start + len(t_min))]
+            if len(inside):
+                checked.append(t_min[torch.as_tensor(inside - start, device=DEVICE)])
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the min-maps to the host: pageable copies, and into one reused pinned
+        # buffer as the pipeline copies them (decoding/permutation.py)
+        copy_gb = sum(k.numel() for k in kept) * 4 / 1e9
+        t0 = time.time()
+        host_maps = np.concatenate([k.cpu().numpy() for k in kept])[:ST_TFCE_MAPS]
+        pageable_s = time.time() - t0
+        t0 = time.time()
+        pinned = torch.empty(kept[0].shape, dtype=torch.float32, pin_memory=True)
+        pin_alloc_s = time.time() - t0
+        t0 = time.time()
+        for k in kept:
+            pinned[:len(k)].copy_(k)
+        pinned_s = time.time() - t0
+        del pinned
+
+        # the sampled permutations against a float64 t-map of the same scores
+        got = torch.cat(checked).cpu().numpy()
+        idx = torch.as_tensor(perms[sampled], dtype=torch.int64, device=DEVICE)
+        subjects = torch.arange(ST_S, device=DEVICE)
+        ref = np.fmin.reduce([t_map_float64(x[subjects[None, :], idx].cpu().numpy(), pm)
+                              for x, pm in zip(stacks, popmeans)])
+        ref[np.isinf(ref)] = np.nan
+        del stacks, kept, checked
+        torch.cuda.empty_cache()
+        nan_equal = bool(np.array_equal(np.isnan(got), np.isnan(ref)))
+        ok = ~np.isnan(ref)
+        rel_err = float(np.abs(got[ok] - ref[ok]).max() / np.abs(ref[ok]).max())
+
+        # host TFCE of the first min-maps, all threads, and one thread on a few
+        t0 = time.time()
+        tfce = T.tfce_map(host_maps, edges, lengths, h=2.0, e=1.0, dh=0.1)
+        tfce_s = time.time() - t0
+        t0 = time.time()
+        one = T.tfce_map(host_maps[:16], edges, lengths, h=2.0, e=1.0, dh=0.1, n_threads=1)
+        one_thread_ms = (time.time() - t0) / 16 * 1e3
+        maxima = np.nanmax(np.where(np.isnan(tfce), -np.inf, tfce), axis=1)
+        hemis[hemi] = {
+            "sweep_s": sweep_s, "sweep_bound_s": bound_s, "sweep_share_of_bound": bound_s / sweep_s,
+            "sweep_bytes": sweep_bytes, "read_once_bound_s": once_bytes / HBM_BYTES_PER_S,
+            "peak_device_gb": peak_gb, "copied_gb": copy_gb,
+            "pageable_copy_gb_per_s": copy_gb / pageable_s,
+            "pinned_copy_gb_per_s": copy_gb / pinned_s, "pinned_alloc_s": pin_alloc_s,
+            "check_perms": sampled.tolist(), "check_max_rel_err": rel_err,
+            "check_nan_patterns_equal": nan_equal, "nan_share": float(np.isnan(ref).mean()),
+            "tfce_maps": len(host_maps), "tfce_ms_per_map": tfce_s / len(host_maps) * 1e3,
+            "tfce_one_thread_ms_per_map": one_thread_ms,
+            "tfce_max_range": [float(maxima.min()), float(maxima.max())]}
+        if not nan_equal or not rel_err <= ST_T_TOL:
+            fails.append(f"{hemi}: t-maps off float64 (NaN patterns equal {nan_equal}, "
+                         f"max rel err {rel_err:.3e} > {ST_T_TOL:g})")
+        if not np.array_equal(one, tfce[:16]) or not np.all(np.isfinite(maxima)):
+            fails.append(f"{hemi}: TFCE threads disagree or a map's max is not finite")
+    threads = min(os.cpu_count() or 1, ST_TFCE_MAPS)
+    tfce_ms = float(np.mean([v["tfce_ms_per_map"] for v in hemis.values()]))
+    out = {"subjects": ST_S, "nulls_per_subject": ST_P, "vertices": ST_V,
+           "group_permutations": ST_GROUP, "chunk": ST_CHUNK, "members": members,
+           "mesh_s": mesh_s, "edges": len(edges), "hemis": hemis,
+           "tfce_threads": threads, "cpu_count": os.cpu_count(),
+           "usable_cpus": len(os.sched_getaffinity(0)),
+           "projected_10k_both_hemis_s": {
+               "sweep": sum(v["sweep_s"] for v in hemis.values()),
+               "host_copy": sum(ST_GROUP * ST_V * 4 / 1e9 / v["pinned_copy_gb_per_s"]
+                                for v in hemis.values()),
+               "tfce": 2 * ST_GROUP * tfce_ms / 1e3}}
+    if fails:
+        raise AssertionError(f"stats: {'; '.join(fails)}: {out}")
+    return out
+
+
+def schur_base_blocks(k: int, base: int = 192) -> list:
+    """Base-block sizes of the "schur-pallas" recursion at k: halves of
+    (k + 1) // 2 and k // 2 until a block is <= base
+    (ops/solvers.schur_spd_inverse)."""
+    if k <= base:
+        return [k]
+    half = (k + 1) // 2
+    return schur_base_blocks(half, base) + schur_base_blocks(k - half, base)
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output held back (a study prints many
+    lines a searchlight run); the last lines are printed if it raises."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            return fn(*args)
+    except Exception:
+        print("\n".join(log.getvalue().splitlines()[-40:]), flush=True)
+        raise
+
+
+class Tally:
+    """Counts the calls of ``module.name``, and sums their seconds, while entered."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls, self.seconds = module, name, 0, 0.0
+
+    def __enter__(self):
+        self._fn = fn = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.calls += 1
+                self.seconds += time.time() - t0
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+        return False
+
+
+def phase_study() -> dict:
+    """The port's study CLI end to end on the card, then the permutation CLI."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch.cli import permutation_testing as perm_cli
+    from multimodal_decoding_tpu_torch.cli import run_study as cli
+    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+    from multimodal_decoding_tpu_torch.data.synthetic import make_synthetic_dataset
+    from multimodal_decoding_tpu_torch.decoding import permutation as PT
+    from multimodal_decoding_tpu_torch.decoding import study as study_module
+    from multimodal_decoding_tpu_torch.decoding.searchlight import (
+        get_results_file_path,
+        searchlight_mode_str,
+    )
+    from multimodal_decoding_tpu_torch.io import artifacts
+    from multimodal_decoding_tpu_torch.io.surface import icosphere, write_freesurfer_geometry
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+
+    subjects = config.SUBJECTS[:SD_SUBJECTS]  # production's six
+    hemis = ("left", "right")
+    with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_study_") as root:
+        t0 = time.time()
+        mesh = icosphere(SD_ICO)
+        for i, subject in enumerate(subjects):
+            info = make_synthetic_dataset(root, subject=subject, n_train=SD_N_TRAIN,
+                                          n_vertices=mesh.n_vertices, latent_dim=D,
+                                          model="imagebind", beta_seed=100 + i)
+        config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
+        config.LATENT_FEATURES_DIR = info["features_dir"]
+        config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
+        _load_feature_pickle.cache_clear()
+        mesh_dir = os.path.join(root, "surfaces", config.DEFAULT_RESOLUTION)
+        os.makedirs(mesh_dir)
+        for hemi in hemis:
+            write_freesurfer_geometry(
+                os.path.join(mesh_dir, f"{config.FS_HEMI_NAMES[hemi]}.inflated"), mesh)
+        dataset_s = time.time() - t0
+
+        sl_out, perm_out = os.path.join(root, "sl"), os.path.join(root, "perm")
+        common = ["--subjects", *subjects, "--model", "imagebind", "--n-neighbors", str(SD_K),
+                  "--l2-regularization-alpha", "cv",
+                  "--n-permutations-group-level", str(SD_GROUP),
+                  "--p-value-threshold", str(SD_P_THRESHOLD),
+                  "--mesh-dir", os.path.join(root, "surfaces"), "--device", DEVICE]
+        argv = ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
+                "--n-permutations-per-subject", str(P), "--block-size", str(B),
+                "--searchlight-out-dir", sl_out, "--permutation-out-dir", perm_out, *common]
+        H.reset_launches()
+        HM.reset_launches()
+        t1 = time.time()
+        with PanelCalls() as calls, Tally(study_module, "run_permutation") as perm_stage, \
+                Tally(PT, "null_max_tfce_statistics") as null_stage:
+            stats = quiet(cli.main, argv)
+        study_s = time.time() - t1
+        launches, streamed = H.launches, dict(HM.launches)
+
+        # a rerun skips every stage
+        H.reset_launches()
+        t1 = time.time()
+        with Tally(PT, "load_per_subject_scores") as observed, \
+                Tally(PT, "_stacked_null_scores") as nulls:
+            rerun = quiet(cli.main, argv)
+        rerun_s, rerun_launches = time.time() - t1, H.launches
+
+        # every artifact at the JAX package's paths
+        feats = config.LatentFeatsConfig("imagebind", verbose=False)
+        mode = searchlight_mode_str(None, SD_K)
+        results = [get_results_file_path(feats, hemi, s, m, config.DEFAULT_RESOLUTION, mode,
+                                         "cv", sl_out)
+                   for m in config.TRAINING_MODES for s in subjects for hemi in hemis]
+        pcfg = stats["permutation_config"]
+        pdir, suffix = PT.permutation_results_dir(pcfg), PT.get_hparam_suffix(pcfg)
+        maps_dir = os.path.join(pdir, "results_maps")
+        expected = [*results,
+                    *(os.path.join(os.path.dirname(r), "null_distr.npz") for r in results),
+                    *(os.path.join(pdir, n) for n in ("t_values.p", f"tfce_values{suffix}.p",
+                                                      f"null_max{suffix}.npz",
+                                                      f"p_values{suffix}.p")),
+                    *(os.path.join(maps_dir, f"{kind}{suffix}_{fs}.gii")
+                      for kind in ("p_values", "tfce_values", "mask") for fs in ("lh", "rh")),
+                    os.path.join(maps_dir, f"masks{suffix}.p"),
+                    os.path.join(maps_dir, f"clusters{suffix}.p")]
+        missing = [os.path.relpath(p, root) for p in expected if not os.path.isfile(p)]
+
+        # chol_inv_panel: every base block of every (alpha, fold) of every block
+        bases = schur_base_blocks(SD_K)
+        per_block = len(bases) * len(ALPHAS) * SD_FOLDS
+        blocks = [-(-int((~artifacts.load_pickle(r)["nan_locations"]).sum()) // B)
+                  for r in results]
+        expected_launches = sum(blocks) * per_block
+
+        # the permutation CLI on the study's searchlight outputs, fresh out dir
+        cli_out = os.path.join(root, "perm_cli")
+        t1 = time.time()
+        by_cli = quiet(perm_cli.main, ["--searchlight-out-dir", sl_out, "--out-dir", cli_out,
+                                       *common])
+        perm_cli_s = time.time() - t1
+        null_max = np.load(os.path.join(pdir, f"null_max{suffix}.npz"))["null_max"]
+        cli_null_max = np.load(os.path.join(PT.permutation_results_dir(
+            dataclasses.replace(pcfg, out_dir=cli_out)), f"null_max{suffix}.npz"))["null_max"]
+
+        def same_p(other):
+            return all(np.array_equal(other["p_values"][h], stats["p_values"][h], equal_nan=True)
+                       for h in hemis)
+
+        n_sig = {h: int(stats["masks"][h].sum()) for h in hemis}
+        first = artifacts.load_pickle(results[0])
+        out = {"subjects": SD_SUBJECTS, "vertices_per_hemi": mesh.n_vertices,
+               "n_train": SD_N_TRAIN, "k": SD_K, "d": D, "nulls_per_subject": P,
+               "group_permutations": SD_GROUP, "p_value_threshold": SD_P_THRESHOLD,
+               "searchlight_runs": len(stats["searchlight_outputs"]),
+               "dataset_s": dataset_s, "study_s": study_s,
+               "searchlights_s": study_s - perm_stage.seconds,
+               "permutation_stage_s": perm_stage.seconds, "null_stage_s": null_stage.seconds,
+               "rerun_s": rerun_s, "permutation_cli_s": perm_cli_s,
+               "first_run_mean_acc": {m: float(np.mean(v))
+                                      for m, v in first["score_maps"].items()},
+               "significant_vertices": n_sig,
+               "significance_cutoff": float(stats["significance_cutoff"]),
+               "launches": launches, "expected_launches": expected_launches,
+               "base_blocks": bases, "panel_shapes": calls.shapes,
+               "rerun_launches": rerun_launches, "missing_artifacts": missing}
+        fails = []
+        if missing or sorted(stats["searchlight_outputs"]) != sorted(results):
+            fails.append(f"artifacts: {len(missing)} missing, searchlight outputs "
+                         f"{len(stats['searchlight_outputs'])} of {len(results)}")
+        if sum(n_sig.values()) == 0:
+            fails.append("no significant vertex on the planted signal")
+        if launches != expected_launches or any(streamed.values()):
+            fails.append(f"launches {launches} (expected {expected_launches}), "
+                         f"streamed {streamed}")
+        calls.check("study", shapes=[(B, pb) for pb in bases])
+        if (rerun["searchlight_outputs"] or rerun_launches or observed.calls or nulls.calls
+                or not same_p(rerun)):
+            fails.append(f"the rerun did not skip: {len(rerun['searchlight_outputs'])} "
+                         f"searchlights, {rerun_launches} launches, {observed.calls} score "
+                         f"loads, {nulls.calls} null loads")
+        if not np.array_equal(cli_null_max, null_max) or not same_p(by_cli):
+            fails.append("the permutation CLI gave another null_max or other p-values")
+        if fails:
+            raise AssertionError(f"study: {'; '.join(fails)}: {out}")
+        return out
+
+
 def kernels_line(results: dict) -> dict:
     """The {"kernels": [...]} summary: each kernel's launches on its main path
     (the CLI for chol_inv_panel, its scorer's run for the streamed ones) and
@@ -1003,7 +1390,8 @@ def kernels_line(results: dict) -> dict:
         "launches": results.get("cli", {}).get("launches"),
         "launches_by_path": {"searchlight_cli": results.get("cli", {}).get("launches"),
                              "whole_brain": results.get("wb", {}).get("launches"),
-                             "whole_brain_cli": results.get("wb_cli", {}).get("launches")},
+                             "whole_brain_cli": results.get("wb_cli", {}).get("launches"),
+                             "study": results.get("study", {}).get("launches")},
         **{k: main_shape.get(k) for k in keys}, "max_rel_err": main_shape.get("max_rel_err"),
         "library_ratio": main_shape.get("library_ratio"),
         "whole_brain_shapes": [{k: m.get(k) for k in wb_keys} for m in shapes
@@ -1055,7 +1443,8 @@ def main() -> int:
         t0 = time.time()
         out = {"build": phase_build, "kernel": phase_kernel, "gate": phase_gate,
                "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
-               "wb": phase_wb, "wb_cli": phase_wb_cli, "wb_profile": phase_wb_profile,
+               "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
+               "study": phase_study, "wb_profile": phase_wb_profile,
                "profile": lambda: phase_profile(args.scorer)}[name]()
         results[name] = out
         emit({"phase": name, "seconds": time.time() - t0, **out})

@@ -1,7 +1,8 @@
 """Surface meshes: FreeSurfer geometry IO, synthetic icospheres, k-NN adjacency.
 
-Port of ``multimodal_decoding_tpu/io/surface.py``.  The FreeSurfer readers and
-``icosphere`` are copies.  ``knn_adjacency`` keeps an exact float64 KD-tree as
+Port of ``multimodal_decoding_tpu/io/surface.py``.  The FreeSurfer readers,
+``icosphere`` and the mesh edges (``mesh_edges``, ``edge_lengths``,
+``edge_lengths_dict``, for TFCE and the cluster tables) are copies.  ``knn_adjacency`` keeps an exact float64 KD-tree as
 its default (the adjacency is a build-once cached artifact, so exactness wins
 over speed); its ``"device"`` method and ``radius_adjacency`` run blocked
 ``|q|^2 - 2 q.p + |p|^2`` distances with ``torch.topk`` on the device, where
@@ -113,6 +114,33 @@ def icosphere(subdivisions: int = 2, radius: float = 100.0) -> SurfaceMesh:
     return SurfaceMesh((verts * radius).astype(np.float32), faces.astype(np.int32))
 
 
+def mesh_edges(mesh: SurfaceMesh) -> np.ndarray:
+    """Unique undirected edges [(min, max)] from faces, sorted.
+
+    Same edge set as the reference's face-based construction
+    (cluster_analysis.py:231-245) but deduplicated (the reference keeps
+    duplicate dict insertions which collapse to the same keys).
+    """
+    f = mesh.faces
+    e = np.vstack([f[:, [0, 1]], f[:, [0, 2]], f[:, [1, 2]]])
+    e = np.sort(e, axis=1)
+    e = np.unique(e, axis=0)
+    return e
+
+
+def edge_lengths(mesh: SurfaceMesh):
+    """(edges [E,2], lengths [E]) with Euclidean lengths on the mesh coords."""
+    e = mesh_edges(mesh)
+    d = np.sqrt(np.sum((mesh.coordinates[e[:, 0]] - mesh.coordinates[e[:, 1]]) ** 2, axis=1))
+    return e, d
+
+
+def edge_lengths_dict(mesh: SurfaceMesh) -> dict:
+    """{(v0, v1): length} dict, reference contract (cluster_analysis.py:243)."""
+    e, d = edge_lengths(mesh)
+    return {(int(a), int(b)): float(l) for (a, b), l in zip(e, d)}
+
+
 def _sq_dists(queries: torch.Tensor, pts: torch.Tensor, pts_sq: torch.Tensor) -> torch.Tensor:
     q_sq = torch.sum(queries * queries, dim=1)
     return q_sq[:, None] - 2.0 * (queries @ pts.T) + pts_sq[None, :]
@@ -130,7 +158,9 @@ def knn_adjacency(coords: np.ndarray, k: int, block: int = 4096, method: str = "
     package uses sklearn's; the port does not depend on sklearn.  Both are
     exact, so they return the same neighbours and distances, except in the
     order of, and the choice at the k-th place among, points at exactly equal
-    distance (a regular icosphere is full of such ties).
+    distance (a regular icosphere is full of such ties).  So score maps match
+    the JAX package's across packages only through the shared adjacency
+    cache (``decoding/searchlight.build_adjacency``'s ``cache_dir``).
     method="device" runs the blocked distances + ``torch.topk`` on ``device``
     (float32; boundary neighbours may differ on near-ties).
     """

@@ -59,23 +59,36 @@ def build(source: str, force: bool = False, verbose: bool = False) -> str:
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.isfile(lib_path) and not force:
         return lib_path
+    nvcc = _nvcc()
+    proc = compile_library(
+        lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, src],
+        lib_path, f"nvcc on {source}")
+    _ptxas_logs[source] = proc.stderr
+    if verbose:
+        print(f"{source}:\n{proc.stderr}", flush=True)
+    return lib_path
+
+
+def compile_library(command, lib_path: str, what: str) -> subprocess.CompletedProcess:
+    """Run ``command(out)``, a compiler call that writes a shared library to
+    ``out``, on a temporary name in ``BUILD_DIR`` and rename the result to
+    ``lib_path``, so a concurrent build never loads a partial file.  A failed
+    call raises with the compiler's output; returns the finished process."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+    cmd = command(tmp)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stderr}")
-        _ptxas_logs[source] = proc.stderr
-        if verbose:
-            print(f"{source}:\n{proc.stderr}", flush=True)
+            raise RuntimeError(f"{what} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return lib_path
+    return proc
 
 
 def _demangle(names: list[str]) -> list[str]:

@@ -6,11 +6,11 @@ one block step of ``decoding/searchlight_engine`` on the device, and the
 per-block score vectors come back to host numpy every few blocks.  Meshes,
 multi-host runs and streamed ingestion are ROADMAP A11.
 
-Imagery derangements: the JAX runner draws them with ``jax.random``.  This
-runner draws block ``b``'s ``[B, P]`` choices from the numpy stream
-``np.random.default_rng([null_seed, b]).integers(0, 2, (B, P))``, or takes
-them from ``imagery_derangements`` (one row per padded vertex), so a test
-can feed both runners the same choices.
+Imagery derangements: block ``b``'s ``[B, P]`` choices are the JAX runner's
+``jax.random.randint(fold_in(PRNGKey(null_seed), b), (B, P), 0, 2)``,
+computed in numpy (``utils/threefry.py``), so both packages write the same
+null scores for the same ``null_seed``.  ``imagery_derangements`` (one row
+per padded vertex) overrides the draw.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from multimodal_decoding_tpu_torch.decoding.searchlight_engine import (
     searchlight_block_with_null,
 )
 from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
+from multimodal_decoding_tpu_torch.utils import threefry
 
 
 def pad_to_multiple(arr: np.ndarray, multiple: int):
@@ -88,9 +89,11 @@ def _materialize_pending(lists: list[list], n_hosted: int) -> int:
 
 def draw_imagery_derangements(null_seed: int, block: int, block_size: int,
                               n_perms: int) -> np.ndarray:
-    """Block ``block``'s [B, P] imagery-derangement choices (0 or 1)."""
-    return np.random.default_rng([null_seed, block]).integers(
-        0, 2, (block_size, n_perms)).astype(np.int32)
+    """Block ``block``'s [B, P] imagery-derangement choices (0 or 1): the JAX
+    runner's ``jax.random.randint(fold_in(PRNGKey(null_seed), block), (B, P),
+    0, 2, int32)``, bit for bit."""
+    key = threefry.fold_in(threefry.prng_key(null_seed), block)
+    return threefry.randint(key, (block_size, n_perms), 0, 2)
 
 
 def run_searchlight(

@@ -36,7 +36,9 @@ def test_every_port_module_is_found():
                      "ops.hopper_metrics", "ops.solvers", "ops.ridge", "ops.metrics",
                      "decoding.searchlight_engine", "parallel.searchlight_runner",
                      "cli.run_searchlight", "io.surface", "data.synthetic",
-                     "decoding.whole_brain", "cli.decode_whole_brain"):
+                     "decoding.whole_brain", "cli.decode_whole_brain", "utils.threefry",
+                     "ops._host_build", "ops.tfce", "ops.stats", "decoding.permutation",
+                     "cli.permutation_testing", "decoding.study", "cli.run_study"):
         assert f"{port.__name__}.{expected}" in mods
 
 
@@ -133,5 +135,31 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert R.ridge_cv_dual(K, y, [1.0, 10.0], n_splits=2, device="cpu")[2].device.type == "cpu"
+
+    # group statistics and the study: their configs, runs, CLIs and the t-maps
+    from multimodal_decoding_tpu_torch.cli import permutation_testing as perm_cli
+    from multimodal_decoding_tpu_torch.cli import run_study as study_cli
+    from multimodal_decoding_tpu_torch.decoding import permutation as P
+    from multimodal_decoding_tpu_torch.decoding import study as ST
+    from multimodal_decoding_tpu_torch.ops import stats as T
+
+    assert P.PermutationConfig().device is None and ST.StudyConfig("", {}).device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.run(P.PermutationConfig(out_dir=str(tmp_path / "perm")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ST.run_study(ST.StudyConfig(betas_dir=str(tmp_path), meshes={}))
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        ST.run_study(ST.StudyConfig(betas_dir=str(tmp_path), meshes={}, fast_math=True))
+    perm_argv = ["--n-neighbors", "3", "--mesh-dir", str(tmp_path / "no_meshes")]
+    study_argv = ["--betas-dir", str(tmp_path), "--mesh-dir", str(tmp_path / "no_meshes")]
+    for module, argv in ((perm_cli, perm_argv), (study_cli, study_argv)):
+        assert module.get_args(argv).device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main(argv)
+    for call in (lambda: T.t_map(x, 0.5), lambda: T.null_t_maps(x[None], [[0]], 0.5),
+                 lambda: T.composite_t_maps({m: x[0] for m in T.T_VAL_METRICS}),
+                 lambda: P.calc_t_values({}, [], [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
