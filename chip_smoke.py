@@ -79,6 +79,27 @@ Phases, each printing one JSON line with its seconds:
              count of the Schur recursion at K, no streamed-count launch, and
              the permutation CLI on the same searchlight outputs giving the
              same null_max and p-values.
+11. ingest - streamed betas ingestion at production width, nothing cut: one
+             fsaverage7 hemisphere (8,192 train + 140 test + 3 imagery rows x
+             163,842 vertices, 1% NaN columns, a planted signal from a seed)
+             written as the betas npz caches (5.46 GB, row chunk by row
+             chunk); the streamed statistics and device X_all
+             (parallel/ingest.py) against the eager load + standardisation +
+             upload: statistics bitwise equal, torch.equal of the two card
+             tensors; seconds of each pass, file-read and H2D GB/s, host peak
+             RSS growth of each path; then 2 runner blocks (B = 128, K = 750,
+             6 alphas, 100 nulls) from each tensor: equal outputs, 240
+             chol_inv_panel launches from the streamed one.
+12. dist   - the multi-GPU paths on a world of one NCCL rank (one card holds
+             one rank): the gate's 2 blocks through run_searchlight(mesh=...)
+             against mesh=None (alphas and nulls equal, scores within rtol
+             2e-5 / atol 2e-6, 240 launches), the whole-brain CLI with
+             --multichip on phase wb_cli's data set (equal accuracies and
+             predictions, 320 launches), the permutation CLI with --sharded
+             on phase study's searchlights (equal null_max and p-values),
+             entry() and dryrun_multichip(1); wall seconds of each sharded
+             run beside its unsharded one.  It needs phases wb_cli and study
+             before it in the same call.
 
 On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
 main-path block step down by kernel (torch.profiler), and ``--phases
@@ -105,7 +126,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli", "stats",
-          "study")
+          "study", "ingest", "dist")
 EXTRA_PHASES = ("profile", "wb_profile")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
@@ -152,6 +173,12 @@ ST_T_TOL = 1e-5  # max |t - t_float64| / max |t_float64|
 SD_SUBJECTS, SD_ICO, SD_N_TRAIN, SD_K = 6, 3, 256, 375
 SD_GROUP, SD_P_THRESHOLD = 10_000, 1e-3  # the least p of 10,000 is 1e-4
 SD_FOLDS = 5
+# streamed ingestion: one fsaverage7 hemisphere, 1% NaN (medial-wall) columns,
+# written and generated in chunks of IN_CHUNK rows
+IN_V, IN_NAN_SHARE, IN_CHUNK = 163_842, 0.01, 512
+# a vertex-sharded runner may pick other cuBLAS kernels at batch B / W
+# (tests/test_multiprocess_distributed.py's bar)
+DIST_RTOL, DIST_ATOL = 2e-5, 2e-6
 STREAMED = [  # (kernel, TPU kernel it replaces)
     ("streamed_pairwise_acc", "multimodal_decoding_tpu/ops/pallas_metrics.py:74"),
     ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
@@ -161,6 +188,22 @@ STREAMED = [  # (kernel, TPU kernel it replaces)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class Workspace:
+    """Scratch directories that outlive their phase: phase ``dist`` reruns the
+    CLIs on the data sets of phases ``wb_cli`` and ``study``."""
+
+    def __init__(self, root: str):
+        self.root, self.runs = root, {}
+
+    def dir(self, name: str) -> str:
+        path = os.path.join(self.root, name)
+        os.makedirs(path)
+        return path
+
+
+WS: Workspace | None = None  # set by main() for the phases of one call
 
 
 def cuda_time_ms(fn, reps: int = 25, warmup: int = 3, per_sample: int = 1) -> float:
@@ -412,14 +455,14 @@ class GateProblem:
         self.shuffles = np.stack(create_null_distr_shuffled_indices(P)).astype(np.int32)
         self.stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
 
-    def run(self, solver, scorer):
-        """The runner over both blocks: (scores, aux)."""
+    def run(self, solver, scorer, mesh=None):
+        """The runner over both blocks, on one device or a "v" mesh: (scores, aux)."""
         from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 
         return run_searchlight(*self.problem, self.adjacency, self.stim_types,
                                alphas_cv=ALPHAS, shuffles=self.shuffles, block_size=B,
-                               device=DEVICE, cv_solver=solver, cv_scorer=scorer,
-                               progress=False)
+                               mesh=mesh, device=None if mesh else DEVICE, cv_solver=solver,
+                               cv_scorer=scorer, progress=False)
 
     def cv_grids(self, runs):
         """Per block, the CV-score grids [B, A] of fit_block_cv for each
@@ -965,63 +1008,64 @@ def phase_wb_cli() -> dict:
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
     from multimodal_decoding_tpu_torch.ops import metrics as M
 
-    with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_wb_") as root:
-        t0 = time.time()
-        n_vertices = icosphere(4).n_vertices
-        info = make_synthetic_dataset(root, n_train=N_TRAIN, n_vertices=n_vertices,
-                                      latent_dim=D, model="imagebind")  # both hemispheres
-        config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
-        config.LATENT_FEATURES_DIR = info["features_dir"]
-        config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
-        _load_feature_pickle.cache_clear()
-        dataset_s = time.time() - t0
+    root = WS.dir("wb_cli")
+    t0 = time.time()
+    n_vertices = icosphere(4).n_vertices
+    info = make_synthetic_dataset(root, n_train=N_TRAIN, n_vertices=n_vertices,
+                                  latent_dim=D, model="imagebind")  # both hemispheres
+    config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
+    config.LATENT_FEATURES_DIR = info["features_dir"]
+    config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
+    _load_feature_pickle.cache_clear()
+    dataset_s = time.time() - t0
 
-        out_dir = os.path.join(root, "wb")
-        argv = ["--betas-dir", info["betas_dir"], "--subjects", "sub-01",
-                "--models", "imagebind", "--surface",
-                "--l2-regularization-alphas", *[str(a) for a in ALPHAS],
-                "--out-dir", out_dir, "--device", DEVICE]
-        H.reset_launches()
-        HM.reset_launches()
-        t1 = time.time()
-        with PanelCalls() as calls:
-            results = cli.main(argv)
-        cli_s = time.time() - t1
-        launches, streamed = H.launches, dict(HM.launches)
-        rerun = cli.main(argv)
+    out_dir = os.path.join(root, "wb")
+    argv = ["--betas-dir", info["betas_dir"], "--subjects", "sub-01",
+            "--models", "imagebind", "--surface",
+            "--l2-regularization-alphas", *[str(a) for a in ALPHAS],
+            "--out-dir", out_dir, "--device", DEVICE]
+    H.reset_launches()
+    HM.reset_launches()
+    t1 = time.time()
+    with PanelCalls() as calls:
+        results = cli.main(argv)
+    cli_s = time.time() - t1
+    launches, streamed = H.launches, dict(HM.launches)
+    rerun = cli.main(argv)
 
-        path = os.path.join(out_dir, "agnostic", "sub-01", get_run_str(
-            info["betas_dir"], config.LatentFeatsConfig("imagebind", verbose=False),
-            surface=True), config.RESULTS_FILE)
-        if len(results) != 1 or not os.path.isfile(path):
-            raise AssertionError(f"wb_cli: {len(results)} results, results.p at {path}: "
-                                 f"{os.path.isfile(path)}")
-        res = artifacts.load_pickle(path)
-        schema = ["alpha", "model", "subject", "features", "training_mode", "num_voxels",
-                  "stimulus_ids", "stimulus_types", "predictions", "imagery_predictions",
-                  "latents", "imagery_latents"]
-        missing = [k for k in schema if k not in res]
-        accs = {m: res[m] for m in (M.ACC_CAPTIONS, M.ACC_IMAGES, M.ACC_IMAGERY,
-                                    M.ACC_IMAGERY_WHOLE_TEST)}
-        out = {"vertices": int(res["num_voxels"]), "n_train": N_TRAIN, "d": D,
-               "best_alpha": res["alpha"], "accuracies": accs, "launches": launches,
-               "panel_shapes": calls.shapes, "rerun_results": len(rerun),
-               "fit_seconds": res["fit_seconds"], "cli_s": cli_s, "dataset_s": dataset_s}
-        fails = []
-        if missing:
-            fails.append(f"results.p lacks {missing}")
-        if res["predictions"].shape != (N_TEST, D) or not np.all(np.isfinite(res["predictions"])):
-            fails.append(f"predictions {res['predictions'].shape}")
-        if min(accs[M.ACC_CAPTIONS], accs[M.ACC_IMAGES]) <= 0.9:
-            fails.append(f"planted-signal accuracies too low: {accs}")
-        if rerun != []:
-            fails.append("the rerun did not skip")
-        if launches != WB_LAUNCHES or any(streamed.values()):
-            fails.append(f"launches {launches} (expected {WB_LAUNCHES}), streamed {streamed}")
-        calls.check("wb_cli")
-        if fails:
-            raise AssertionError(f"wb_cli: {'; '.join(fails)}: {out}")
-        return out
+    path = os.path.join(out_dir, "agnostic", "sub-01", get_run_str(
+        info["betas_dir"], config.LatentFeatsConfig("imagebind", verbose=False),
+        surface=True), config.RESULTS_FILE)
+    if len(results) != 1 or not os.path.isfile(path):
+        raise AssertionError(f"wb_cli: {len(results)} results, results.p at {path}: "
+                             f"{os.path.isfile(path)}")
+    res = artifacts.load_pickle(path)
+    schema = ["alpha", "model", "subject", "features", "training_mode", "num_voxels",
+              "stimulus_ids", "stimulus_types", "predictions", "imagery_predictions",
+              "latents", "imagery_latents"]
+    missing = [k for k in schema if k not in res]
+    accs = {m: res[m] for m in (M.ACC_CAPTIONS, M.ACC_IMAGES, M.ACC_IMAGERY,
+                                M.ACC_IMAGERY_WHOLE_TEST)}
+    out = {"vertices": int(res["num_voxels"]), "n_train": N_TRAIN, "d": D,
+           "best_alpha": res["alpha"], "accuracies": accs, "launches": launches,
+           "panel_shapes": calls.shapes, "rerun_results": len(rerun),
+           "fit_seconds": res["fit_seconds"], "cli_s": cli_s, "dataset_s": dataset_s}
+    fails = []
+    if missing:
+        fails.append(f"results.p lacks {missing}")
+    if res["predictions"].shape != (N_TEST, D) or not np.all(np.isfinite(res["predictions"])):
+        fails.append(f"predictions {res['predictions'].shape}")
+    if min(accs[M.ACC_CAPTIONS], accs[M.ACC_IMAGES]) <= 0.9:
+        fails.append(f"planted-signal accuracies too low: {accs}")
+    if rerun != []:
+        fails.append("the rerun did not skip")
+    if launches != WB_LAUNCHES or any(streamed.values()):
+        fails.append(f"launches {launches} (expected {WB_LAUNCHES}), streamed {streamed}")
+    calls.check("wb_cli")
+    if fails:
+        raise AssertionError(f"wb_cli: {'; '.join(fails)}: {out}")
+    WS.runs["wb_cli"] = {"info": info, "argv": argv, "results": path, "cli_s": cli_s}
+    return out
 
 
 def null_stacks(seed: int, n_members: int) -> list:
@@ -1251,128 +1295,493 @@ def phase_study() -> dict:
 
     subjects = config.SUBJECTS[:SD_SUBJECTS]  # production's six
     hemis = ("left", "right")
-    with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_study_") as root:
-        t0 = time.time()
-        mesh = icosphere(SD_ICO)
-        for i, subject in enumerate(subjects):
-            info = make_synthetic_dataset(root, subject=subject, n_train=SD_N_TRAIN,
-                                          n_vertices=mesh.n_vertices, latent_dim=D,
-                                          model="imagebind", beta_seed=100 + i)
-        config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
-        config.LATENT_FEATURES_DIR = info["features_dir"]
-        config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
-        _load_feature_pickle.cache_clear()
-        mesh_dir = os.path.join(root, "surfaces", config.DEFAULT_RESOLUTION)
-        os.makedirs(mesh_dir)
-        for hemi in hemis:
-            write_freesurfer_geometry(
-                os.path.join(mesh_dir, f"{config.FS_HEMI_NAMES[hemi]}.inflated"), mesh)
-        dataset_s = time.time() - t0
+    root = WS.dir("study")
+    t0 = time.time()
+    mesh = icosphere(SD_ICO)
+    for i, subject in enumerate(subjects):
+        info = make_synthetic_dataset(root, subject=subject, n_train=SD_N_TRAIN,
+                                      n_vertices=mesh.n_vertices, latent_dim=D,
+                                      model="imagebind", beta_seed=100 + i)
+    config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
+    config.LATENT_FEATURES_DIR = info["features_dir"]
+    config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
+    _load_feature_pickle.cache_clear()
+    mesh_dir = os.path.join(root, "surfaces", config.DEFAULT_RESOLUTION)
+    os.makedirs(mesh_dir)
+    for hemi in hemis:
+        write_freesurfer_geometry(
+            os.path.join(mesh_dir, f"{config.FS_HEMI_NAMES[hemi]}.inflated"), mesh)
+    dataset_s = time.time() - t0
 
-        sl_out, perm_out = os.path.join(root, "sl"), os.path.join(root, "perm")
-        common = ["--subjects", *subjects, "--model", "imagebind", "--n-neighbors", str(SD_K),
-                  "--l2-regularization-alpha", "cv",
-                  "--n-permutations-group-level", str(SD_GROUP),
-                  "--p-value-threshold", str(SD_P_THRESHOLD),
-                  "--mesh-dir", os.path.join(root, "surfaces"), "--device", DEVICE]
-        argv = ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
-                "--n-permutations-per-subject", str(P), "--block-size", str(B),
-                "--searchlight-out-dir", sl_out, "--permutation-out-dir", perm_out, *common]
+    sl_out, perm_out = os.path.join(root, "sl"), os.path.join(root, "perm")
+    common = ["--subjects", *subjects, "--model", "imagebind", "--n-neighbors", str(SD_K),
+              "--l2-regularization-alpha", "cv",
+              "--n-permutations-group-level", str(SD_GROUP),
+              "--p-value-threshold", str(SD_P_THRESHOLD),
+              "--mesh-dir", os.path.join(root, "surfaces"), "--device", DEVICE]
+    argv = ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
+            "--n-permutations-per-subject", str(P), "--block-size", str(B),
+            "--searchlight-out-dir", sl_out, "--permutation-out-dir", perm_out, *common]
+    H.reset_launches()
+    HM.reset_launches()
+    t1 = time.time()
+    with PanelCalls() as calls, Tally(study_module, "run_permutation") as perm_stage, \
+            Tally(PT, "null_max_tfce_statistics") as null_stage:
+        stats = quiet(cli.main, argv)
+    study_s = time.time() - t1
+    launches, streamed = H.launches, dict(HM.launches)
+
+    # a rerun skips every stage
+    H.reset_launches()
+    t1 = time.time()
+    with Tally(PT, "load_per_subject_scores") as observed, \
+            Tally(PT, "_stacked_null_scores") as nulls:
+        rerun = quiet(cli.main, argv)
+    rerun_s, rerun_launches = time.time() - t1, H.launches
+
+    # every artifact at the JAX package's paths
+    feats = config.LatentFeatsConfig("imagebind", verbose=False)
+    mode = searchlight_mode_str(None, SD_K)
+    results = [get_results_file_path(feats, hemi, s, m, config.DEFAULT_RESOLUTION, mode,
+                                     "cv", sl_out)
+               for m in config.TRAINING_MODES for s in subjects for hemi in hemis]
+    pcfg = stats["permutation_config"]
+    pdir, suffix = PT.permutation_results_dir(pcfg), PT.get_hparam_suffix(pcfg)
+    maps_dir = os.path.join(pdir, "results_maps")
+    expected = [*results,
+                *(os.path.join(os.path.dirname(r), "null_distr.npz") for r in results),
+                *(os.path.join(pdir, n) for n in ("t_values.p", f"tfce_values{suffix}.p",
+                                                  f"null_max{suffix}.npz",
+                                                  f"p_values{suffix}.p")),
+                *(os.path.join(maps_dir, f"{kind}{suffix}_{fs}.gii")
+                  for kind in ("p_values", "tfce_values", "mask") for fs in ("lh", "rh")),
+                os.path.join(maps_dir, f"masks{suffix}.p"),
+                os.path.join(maps_dir, f"clusters{suffix}.p")]
+    missing = [os.path.relpath(p, root) for p in expected if not os.path.isfile(p)]
+
+    # chol_inv_panel: every base block of every (alpha, fold) of every block
+    bases = schur_base_blocks(SD_K)
+    per_block = len(bases) * len(ALPHAS) * SD_FOLDS
+    blocks = [-(-int((~artifacts.load_pickle(r)["nan_locations"]).sum()) // B)
+              for r in results]
+    expected_launches = sum(blocks) * per_block
+
+    # the permutation CLI on the study's searchlight outputs, fresh out dir
+    cli_out = os.path.join(root, "perm_cli")
+    t1 = time.time()
+    by_cli = quiet(perm_cli.main, ["--searchlight-out-dir", sl_out, "--out-dir", cli_out,
+                                   *common])
+    perm_cli_s = time.time() - t1
+    null_max = np.load(os.path.join(pdir, f"null_max{suffix}.npz"))["null_max"]
+    cli_null_max = np.load(os.path.join(PT.permutation_results_dir(
+        dataclasses.replace(pcfg, out_dir=cli_out)), f"null_max{suffix}.npz"))["null_max"]
+
+    def same_p(other):
+        return all(np.array_equal(other["p_values"][h], stats["p_values"][h], equal_nan=True)
+                   for h in hemis)
+
+    n_sig = {h: int(stats["masks"][h].sum()) for h in hemis}
+    first = artifacts.load_pickle(results[0])
+    out = {"subjects": SD_SUBJECTS, "vertices_per_hemi": mesh.n_vertices,
+           "n_train": SD_N_TRAIN, "k": SD_K, "d": D, "nulls_per_subject": P,
+           "group_permutations": SD_GROUP, "p_value_threshold": SD_P_THRESHOLD,
+           "searchlight_runs": len(stats["searchlight_outputs"]),
+           "dataset_s": dataset_s, "study_s": study_s,
+           "searchlights_s": study_s - perm_stage.seconds,
+           "permutation_stage_s": perm_stage.seconds, "null_stage_s": null_stage.seconds,
+           "rerun_s": rerun_s, "permutation_cli_s": perm_cli_s,
+           "first_run_mean_acc": {m: float(np.mean(v))
+                                  for m, v in first["score_maps"].items()},
+           "significant_vertices": n_sig,
+           "significance_cutoff": float(stats["significance_cutoff"]),
+           "launches": launches, "expected_launches": expected_launches,
+           "base_blocks": bases, "panel_shapes": calls.shapes,
+           "rerun_launches": rerun_launches, "missing_artifacts": missing}
+    fails = []
+    if missing or sorted(stats["searchlight_outputs"]) != sorted(results):
+        fails.append(f"artifacts: {len(missing)} missing, searchlight outputs "
+                     f"{len(stats['searchlight_outputs'])} of {len(results)}")
+    if sum(n_sig.values()) == 0:
+        fails.append("no significant vertex on the planted signal")
+    if launches != expected_launches or any(streamed.values()):
+        fails.append(f"launches {launches} (expected {expected_launches}), "
+                     f"streamed {streamed}")
+    calls.check("study", shapes=[(B, pb) for pb in bases])
+    if (rerun["searchlight_outputs"] or rerun_launches or observed.calls or nulls.calls
+            or not same_p(rerun)):
+        fails.append(f"the rerun did not skip: {len(rerun['searchlight_outputs'])} "
+                     f"searchlights, {rerun_launches} launches, {observed.calls} score "
+                     f"loads, {nulls.calls} null loads")
+    if not np.array_equal(cli_null_max, null_max) or not same_p(by_cli):
+        fails.append("the permutation CLI gave another null_max or other p-values")
+    if fails:
+        raise AssertionError(f"study: {'; '.join(fails)}: {out}")
+    WS.runs["study"] = {"info": info, "common": common, "sl_out": sl_out, "root": root,
+                        "null_max": null_max, "p_values": stats["p_values"],
+                        "pcfg": pcfg, "permutation_cli_s": perm_cli_s}
+    return out
+
+
+class PeakRss:
+    """Peak growth of this process's resident set over a ``with`` block, in
+    bytes: VmRSS sampled every 2 ms on a thread.  (VmHWM cannot be reset
+    where writing /proc/self/clear_refs is not permitted, and earlier phases
+    leave it high.)"""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = proc_status_bytes("VmRSS")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, proc_status_bytes("VmRSS"))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, proc_status_bytes("VmRSS"))
+        self.growth = self.peak - self.base
+
+
+def proc_status_bytes(key: str) -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError(f"/proc/self/status has no {key}")
+
+
+def write_betas_cache(path: str, rows, n_rows: int, n_cols: int) -> None:
+    """A betas npz cache in np.savez's layout (ZIP_STORED members betas,
+    stim_ids, stim_types), its betas written chunk by chunk from ``rows``
+    (an iterator of float32 [r, n_cols] arrays), never whole in host memory."""
+    import zipfile
+
+    import numpy as np
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        with zf.open("betas.npy", "w", force_zip64=True) as f:
+            np.lib.format.write_array_header_1_0(
+                f, {"descr": np.lib.format.dtype_to_descr(np.dtype(np.float32)),
+                    "fortran_order": False, "shape": (n_rows, n_cols)})
+            written = 0
+            for chunk in rows:
+                f.write(memoryview(np.ascontiguousarray(chunk)).cast("B"))
+                written += len(chunk)
+        if written != n_rows:
+            raise AssertionError(f"{path}: wrote {written} rows, expected {n_rows}")
+        for name, arr in (("stim_ids", np.arange(n_rows)),
+                          ("stim_types", np.zeros(n_rows, np.int64))):
+            with zf.open(name + ".npy", "w") as f:
+                np.lib.format.write_array(f, arr)
+
+
+def ingest_dataset(root: str):
+    """The ingest phase's betas caches, made on the card from a seed.
+
+    X = noise + Y W (W [D, V] graded over icosphere(7) like the gate's
+    planted signal), 1% of the columns NaN in every row.  Returns (betas_dir,
+    cache paths of train/test/imagery, Y splits as numpy, the mesh's
+    coordinates).
+    """
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.config import SPLIT_IMAGERY, SPLIT_TEST, SPLIT_TRAIN
+    from multimodal_decoding_tpu_torch.data.betas import surface_cache_path
+    from multimodal_decoding_tpu_torch.io.surface import icosphere
+
+    coords = icosphere(ST_ICO).coordinates
+    if len(coords) != IN_V:
+        raise AssertionError(f"icosphere({ST_ICO}) has {len(coords)} vertices, not {IN_V}")
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    n_all = N_TRAIN + N_TEST + N_IMAG
+    z = torch.as_tensor(coords[:, 2] / (coords ** 2).sum(1) ** 0.5, device=DEVICE)
+    W = torch.randn((D, IN_V), generator=gen, device=DEVICE) * 10.0 ** (-3.0 + 1.3 * (z + 1) / 2)
+    Y = torch.randn((n_all, D), generator=gen, device=DEVICE)
+    nan_cols = torch.randperm(IN_V, generator=gen, device=DEVICE)[:int(IN_V * IN_NAN_SHARE)]
+    host = torch.empty((IN_CHUNK, IN_V), dtype=torch.float32, pin_memory=True)
+
+    def rows(lo, hi):
+        for r0 in range(lo, hi, IN_CHUNK):
+            r1 = min(r0 + IN_CHUNK, hi)
+            x = torch.randn((r1 - r0, IN_V), generator=gen, device=DEVICE) + Y[r0:r1] @ W
+            x[:, nan_cols] = float("nan")
+            yield host[:r1 - r0].copy_(x).numpy()
+
+    betas_dir = os.path.join(root, "betas", "surface")
+    paths = []
+    for (lo, hi), split in zip([(0, N_TRAIN), (N_TRAIN, N_TRAIN + N_TEST),
+                                (N_TRAIN + N_TEST, n_all)],
+                               (SPLIT_TRAIN, SPLIT_TEST, SPLIT_IMAGERY)):
+        paths.append(surface_cache_path(betas_dir, "sub-01", split, hemi="left"))
+        os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+        write_betas_cache(paths[-1], rows(lo, hi), hi - lo, IN_V)
+    Y = Y.cpu().numpy()
+    return (betas_dir, paths, (Y[:N_TRAIN], Y[N_TRAIN:N_TRAIN + N_TEST], Y[N_TRAIN + N_TEST:]),
+            coords)
+
+
+def phase_ingest() -> dict:
+    """Streamed betas ingestion against the eager path at production width."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch.config import SPLIT_IMAGERY, SPLIT_TEST, SPLIT_TRAIN
+    from multimodal_decoding_tpu_torch.data.betas import get_fmri_surface_data
+    from multimodal_decoding_tpu_torch.data.preprocess import standardize_fmri_betas
+    from multimodal_decoding_tpu_torch.data.stimuli import create_null_distr_shuffled_indices
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.parallel.ingest import (
+        NpzMemberReader,
+        default_chunk_rows,
+        streamed_scaler_fit,
+        streamed_x_all_device,
+    )
+    from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
+
+    root = WS.dir("ingest")
+    n_all = N_TRAIN + N_TEST + N_IMAG
+    cache_gb = n_all * IN_V * 4 / 1e9
+    free_gb = shutil.disk_usage(root).free / 1e9
+    if free_gb < 1.5 * cache_gb:
+        raise AssertionError(f"ingest: {free_gb:.1f} GB free under {root}, the betas caches "
+                             f"need {cache_gb:.2f} GB")
+    config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
+    t0 = time.time()
+    betas_dir, paths, Y, coords = ingest_dataset(root)
+    torch.cuda.synchronize()
+    write_s = time.time() - t0
+
+    # a plain read pass over the three files (they are in the page cache now)
+    readers = [NpzMemberReader(p) for p in paths]
+    rows = default_chunk_rows(IN_V)
+    buf = np.empty((rows, IN_V), np.float32)
+    t0 = time.time()
+    for r in readers:
+        for _ in r.iter_row_chunks(rows, buf):
+            pass
+    read_gb_per_s = cache_gb / (time.time() - t0)
+    # one pinned chunk to the card, CUDA events
+    pinned = torch.empty((rows, IN_V), dtype=torch.float32, pin_memory=True)
+    card = torch.empty((rows, IN_V), dtype=torch.float32, device=DEVICE)
+    h2d_ms = cuda_time_ms(lambda: card.copy_(pinned, non_blocking=True), reps=10, warmup=2)
+    h2d_gb_per_s = pinned.numel() * 4 / 1e9 / (h2d_ms * 1e-3)
+    del pinned, card, buf
+
+    # streamed: two passes for the statistics, one for the upload
+    with PeakRss() as streamed_rss:
+        t0 = time.time()
+        keep = ~np.isnan(readers[0].read_row(0))
+        mean32, scale32 = streamed_scaler_fit(readers[0], keep)
+        scaler_s = time.time() - t0
+        t0 = time.time()
+        X_stream = streamed_x_all_device(readers, keep, mean32, scale32, device=DEVICE)
+        upload_s = time.time() - t0
+
+    # eager: np.load of each cache, standardize_fmri_betas, concatenate, upload
+    with PeakRss() as eager_rss:
+        t0 = time.time()
+        loaded = [get_fmri_surface_data(betas_dir, "sub-01", SPLIT_TRAIN, hemi="left")[0],
+                  get_fmri_surface_data(betas_dir, "sub-01", SPLIT_TEST, hemi="left")[0],
+                  get_fmri_surface_data(betas_dir, "sub-01", SPLIT_IMAGERY, hemi="left")[0]]
+        load_s = time.time() - t0
+        t0 = time.time()
+        eager = standardize_fmri_betas(*loaded)
+        standardize_s = time.time() - t0
+        t0 = time.time()
+        X_eager = torch.as_tensor(np.concatenate(eager), device=DEVICE)
+        torch.cuda.synchronize()
+        eager_upload_s = time.time() - t0
+    del eager
+    # the eager statistics, as standardize_fmri_betas computes them
+    train = np.ascontiguousarray(loaded[0][:, keep])
+    del loaded
+    e_mean = train.mean(axis=0, dtype=np.float64).astype(np.float32)
+    std64 = np.sqrt(np.var(train, axis=0, dtype=np.float64))
+    e_scale = np.where(std64 == 0.0, 1.0, std64).astype(np.float32)
+    del train, std64
+    stats_equal = bool(np.array_equal(mean32, e_mean) and np.array_equal(scale32, e_scale))
+    tensors_equal = bool(torch.equal(X_stream, X_eager))
+
+    # two runner blocks from each tensor
+    kept = coords[keep]
+    adjacency = cKDTree(kept).query(kept[:2 * B], k=K)[1].astype(np.int32)
+    shuffles = np.stack(create_null_distr_shuffled_indices(P)).astype(np.int32)
+    stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
+
+    def run(X):
+        return run_searchlight(None, None, None, *Y, adjacency, stim_types, alphas_cv=ALPHAS,
+                               shuffles=shuffles, block_size=B, device=DEVICE,
+                               cv_solver="schur-pallas", progress=False, x_all_device=X,
+                               n_rows_split=(N_TRAIN, N_TEST, N_IMAG))
+
+    H.reset_launches()
+    got, got_aux = run(X_stream)
+    launches = H.launches
+    ref, ref_aux = run(X_eager)
+    runs_equal = (all(np.array_equal(got[m], ref[m]) for m in ref)
+                  and np.array_equal(got_aux["best_alpha"], ref_aux["best_alpha"])
+                  and all(np.array_equal(got_aux["null_scores"][m], v)
+                          for m, v in ref_aux["null_scores"].items()))
+    del X_stream, X_eager
+    torch.cuda.empty_cache()
+    x_gb = n_all * int(keep.sum()) * 4 / 1e9
+    out = {"rows": [N_TRAIN, N_TEST, N_IMAG], "vertices": IN_V, "kept": int(keep.sum()),
+           "cache_gb": cache_gb, "x_all_gb": x_gb, "disk_free_gb": free_gb,
+           "cache_dir": config.BETAS_CACHE_DIR, "write_s": write_s,
+           "read_gb_per_s": read_gb_per_s, "h2d_gb_per_s": h2d_gb_per_s,
+           "streamed": {"scaler_s": scaler_s, "upload_s": upload_s,
+                        "upload_gb_per_s": x_gb / upload_s,
+                        "host_peak_gb": streamed_rss.growth / 1e9},
+           "eager": {"load_s": load_s, "standardize_s": standardize_s,
+                     "upload_s": eager_upload_s, "host_peak_gb": eager_rss.growth / 1e9},
+           "statistics_bitwise_equal": stats_equal, "x_all_equal": tensors_equal,
+           "runs_equal": bool(runs_equal), "launches": launches,
+           "expected_launches": 2 * LAUNCHES_PER_BLOCK,
+           "streamed_vertices_per_sec": got_aux["vertices_per_sec"],
+           "best_alpha_counts": {f"{a:g}": int(c) for a, c in
+                                 zip(*np.unique(got_aux["best_alpha"], return_counts=True))}}
+    fails = []
+    if not stats_equal:
+        fails.append("streamed statistics differ from the eager ones")
+    if not tensors_equal:
+        fails.append("the streamed X_all differs from the eager one")
+    if not runs_equal:
+        fails.append("the runner's outputs differ between the two tensors")
+    if launches != 2 * LAUNCHES_PER_BLOCK:
+        fails.append(f"{launches} chol_inv_panel launches, expected {2 * LAUNCHES_PER_BLOCK}")
+    shutil.rmtree(root)
+    if fails:
+        raise AssertionError(f"ingest: {'; '.join(fails)}: {out}")
+    return out
+
+
+def phase_dist() -> dict:
+    """The multi-GPU paths on a world of one NCCL rank, each against its
+    unsharded run."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch import entry as E
+    from multimodal_decoding_tpu_torch.cli import decode_whole_brain as wb_cli
+    from multimodal_decoding_tpu_torch.cli import permutation_testing as perm_cli
+    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+    from multimodal_decoding_tpu_torch.decoding import permutation as PT
+    from multimodal_decoding_tpu_torch.io import artifacts
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.parallel.mesh import vertex_mesh
+
+    if not {"wb_cli", "study"} <= set(WS.runs):
+        raise AssertionError("phase dist needs phases wb_cli and study before it")
+    out, fails = {}, []
+    mesh = vertex_mesh(DEVICE)
+    out["world"] = {"backend": dist.get_backend(), "size": mesh.size, "device": str(mesh.device)}
+    try:
+        # (1) the gate's two blocks, vertex-sharded against one device
+        gate = GateProblem()
         H.reset_launches()
         HM.reset_launches()
-        t1 = time.time()
-        with PanelCalls() as calls, Tally(study_module, "run_permutation") as perm_stage, \
-                Tally(PT, "null_max_tfce_statistics") as null_stage:
-            stats = quiet(cli.main, argv)
-        study_s = time.time() - t1
-        launches, streamed = H.launches, dict(HM.launches)
+        t0 = time.time()
+        got, got_aux = gate.run("schur-pallas", "xla", mesh=mesh)
+        sl_mesh_s = time.time() - t0
+        sl_launches, streamed = H.launches, sum(HM.launches.values())
+        t0 = time.time()
+        ref, ref_aux = gate.run("schur-pallas", "xla")
+        sl_s = time.time() - t0
+        alphas_equal = bool(np.array_equal(got_aux["best_alpha"], ref_aux["best_alpha"]))
+        nulls_equal = all(np.array_equal(got_aux["null_scores"][m], v)
+                          for m, v in ref_aux["null_scores"].items())
+        close = all(np.allclose(got[m], ref[m], rtol=DIST_RTOL, atol=DIST_ATOL) for m in ref)
+        out["searchlight"] = {"mesh_s": sl_mesh_s, "one_device_s": sl_s,
+                              "launches": sl_launches, **compare_paths(got, got_aux, ref, ref_aux)}
+        if not (alphas_equal and nulls_equal and close):
+            fails.append(f"searchlight: alphas equal {alphas_equal}, nulls equal "
+                         f"{nulls_equal}, scores within the bar {close}")
+        if sl_launches != 2 * LAUNCHES_PER_BLOCK or streamed:
+            fails.append(f"searchlight: {sl_launches} chol_inv_panel launches (expected "
+                         f"{2 * LAUNCHES_PER_BLOCK}), {streamed} streamed")
 
-        # a rerun skips every stage
+        # (2) the whole-brain CLI with --multichip on phase wb_cli's data set
+        wb = WS.runs["wb_cli"]
+        config.FMRI_STIM_INFO_DIR = wb["info"]["stim_info_dir"]
+        config.LATENT_FEATURES_DIR = wb["info"]["features_dir"]
+        config.BETAS_CACHE_DIR = os.path.join(os.path.dirname(wb["info"]["stim_info_dir"]),
+                                              "betas_cache")
+        _load_feature_pickle.cache_clear()
+        argv = list(wb["argv"])
+        wb_out = WS.dir("wb_multichip")
+        argv[argv.index("--out-dir") + 1] = wb_out
         H.reset_launches()
-        t1 = time.time()
-        with Tally(PT, "load_per_subject_scores") as observed, \
-                Tally(PT, "_stacked_null_scores") as nulls:
-            rerun = quiet(cli.main, argv)
-        rerun_s, rerun_launches = time.time() - t1, H.launches
+        t0 = time.time()
+        with PanelCalls() as calls:
+            (multi,) = quiet(wb_cli.main, argv + ["--multichip"])
+        wb_mesh_s = time.time() - t0
+        wb_launches = H.launches
+        plain = artifacts.load_pickle(wb["results"])
+        accs = {m: (multi[m], plain[m]) for m in ("pairwise_acc_captions", "pairwise_acc_images",
+                                                  "pairwise_acc_imagery",
+                                                  "pairwise_acc_imagery_whole_test_set")}
+        out["whole_brain_cli"] = {"multichip_cli_s": wb_mesh_s, "one_device_cli_s": wb["cli_s"],
+                                  "launches": wb_launches, "accuracies": accs,
+                                  "panel_shapes": calls.shapes}
+        calls.check("dist whole-brain")
+        if any(a != b for a, b in accs.values()) or not np.array_equal(
+                multi["predictions"], plain["predictions"]):
+            fails.append(f"whole-brain --multichip: accuracies {accs} or predictions differ")
+        if wb_launches != WB_LAUNCHES:
+            fails.append(f"whole-brain --multichip: {wb_launches} launches, not {WB_LAUNCHES}")
 
-        # every artifact at the JAX package's paths
-        feats = config.LatentFeatsConfig("imagebind", verbose=False)
-        mode = searchlight_mode_str(None, SD_K)
-        results = [get_results_file_path(feats, hemi, s, m, config.DEFAULT_RESOLUTION, mode,
-                                         "cv", sl_out)
-                   for m in config.TRAINING_MODES for s in subjects for hemi in hemis]
-        pcfg = stats["permutation_config"]
-        pdir, suffix = PT.permutation_results_dir(pcfg), PT.get_hparam_suffix(pcfg)
-        maps_dir = os.path.join(pdir, "results_maps")
-        expected = [*results,
-                    *(os.path.join(os.path.dirname(r), "null_distr.npz") for r in results),
-                    *(os.path.join(pdir, n) for n in ("t_values.p", f"tfce_values{suffix}.p",
-                                                      f"null_max{suffix}.npz",
-                                                      f"p_values{suffix}.p")),
-                    *(os.path.join(maps_dir, f"{kind}{suffix}_{fs}.gii")
-                      for kind in ("p_values", "tfce_values", "mask") for fs in ("lh", "rh")),
-                    os.path.join(maps_dir, f"masks{suffix}.p"),
-                    os.path.join(maps_dir, f"clusters{suffix}.p")]
-        missing = [os.path.relpath(p, root) for p in expected if not os.path.isfile(p)]
+        # (3) the permutation CLI with --sharded on phase study's searchlights
+        study = WS.runs["study"]
+        perm_out = WS.dir("perm_sharded")
+        t0 = time.time()
+        sharded = quiet(perm_cli.main, ["--searchlight-out-dir", study["sl_out"], "--out-dir",
+                                        perm_out, *study["common"], "--sharded"])
+        perm_mesh_s = time.time() - t0
+        pcfg = dataclasses.replace(study["pcfg"], out_dir=perm_out)
+        null_max = np.load(os.path.join(PT.permutation_results_dir(pcfg),
+                                        f"null_max{PT.get_hparam_suffix(pcfg)}.npz"))["null_max"]
+        same_p = all(np.array_equal(sharded["p_values"][h], p, equal_nan=True)
+                     for h, p in study["p_values"].items())
+        out["permutation_cli"] = {"sharded_cli_s": perm_mesh_s,
+                                  "one_device_cli_s": study["permutation_cli_s"],
+                                  "null_max_equal": bool(np.array_equal(null_max,
+                                                                        study["null_max"])),
+                                  "p_values_equal": same_p}
+        if not out["permutation_cli"]["null_max_equal"] or not same_p:
+            fails.append("permutation --sharded: another null_max or other p-values")
 
-        # chol_inv_panel: every base block of every (alpha, fold) of every block
-        bases = schur_base_blocks(SD_K)
-        per_block = len(bases) * len(ALPHAS) * SD_FOLDS
-        blocks = [-(-int((~artifacts.load_pickle(r)["nan_locations"]).sum()) // B)
-                  for r in results]
-        expected_launches = sum(blocks) * per_block
-
-        # the permutation CLI on the study's searchlight outputs, fresh out dir
-        cli_out = os.path.join(root, "perm_cli")
-        t1 = time.time()
-        by_cli = quiet(perm_cli.main, ["--searchlight-out-dir", sl_out, "--out-dir", cli_out,
-                                       *common])
-        perm_cli_s = time.time() - t1
-        null_max = np.load(os.path.join(pdir, f"null_max{suffix}.npz"))["null_max"]
-        cli_null_max = np.load(os.path.join(PT.permutation_results_dir(
-            dataclasses.replace(pcfg, out_dir=cli_out)), f"null_max{suffix}.npz"))["null_max"]
-
-        def same_p(other):
-            return all(np.array_equal(other["p_values"][h], stats["p_values"][h], equal_nan=True)
-                       for h in hemis)
-
-        n_sig = {h: int(stats["masks"][h].sum()) for h in hemis}
-        first = artifacts.load_pickle(results[0])
-        out = {"subjects": SD_SUBJECTS, "vertices_per_hemi": mesh.n_vertices,
-               "n_train": SD_N_TRAIN, "k": SD_K, "d": D, "nulls_per_subject": P,
-               "group_permutations": SD_GROUP, "p_value_threshold": SD_P_THRESHOLD,
-               "searchlight_runs": len(stats["searchlight_outputs"]),
-               "dataset_s": dataset_s, "study_s": study_s,
-               "searchlights_s": study_s - perm_stage.seconds,
-               "permutation_stage_s": perm_stage.seconds, "null_stage_s": null_stage.seconds,
-               "rerun_s": rerun_s, "permutation_cli_s": perm_cli_s,
-               "first_run_mean_acc": {m: float(np.mean(v))
-                                      for m, v in first["score_maps"].items()},
-               "significant_vertices": n_sig,
-               "significance_cutoff": float(stats["significance_cutoff"]),
-               "launches": launches, "expected_launches": expected_launches,
-               "base_blocks": bases, "panel_shapes": calls.shapes,
-               "rerun_launches": rerun_launches, "missing_artifacts": missing}
-        fails = []
-        if missing or sorted(stats["searchlight_outputs"]) != sorted(results):
-            fails.append(f"artifacts: {len(missing)} missing, searchlight outputs "
-                         f"{len(stats['searchlight_outputs'])} of {len(results)}")
-        if sum(n_sig.values()) == 0:
-            fails.append("no significant vertex on the planted signal")
-        if launches != expected_launches or any(streamed.values()):
-            fails.append(f"launches {launches} (expected {expected_launches}), "
-                         f"streamed {streamed}")
-        calls.check("study", shapes=[(B, pb) for pb in bases])
-        if (rerun["searchlight_outputs"] or rerun_launches or observed.calls or nulls.calls
-                or not same_p(rerun)):
-            fails.append(f"the rerun did not skip: {len(rerun['searchlight_outputs'])} "
-                         f"searchlights, {rerun_launches} launches, {observed.calls} score "
-                         f"loads, {nulls.calls} null loads")
-        if not np.array_equal(cli_null_max, null_max) or not same_p(by_cli):
-            fails.append("the permutation CLI gave another null_max or other p-values")
-        if fails:
-            raise AssertionError(f"study: {'; '.join(fails)}: {out}")
-        return out
+        # (4) the entry block step and the dry run
+        H.reset_launches()
+        fn, args = E.entry(DEVICE)
+        block = fn(*args)
+        entry_launches = H.launches
+        t0 = time.time()
+        preds, scores = quiet(E.dryrun_multichip, 1, DEVICE)
+        out["entry"] = {"shape": list(block.shape), "finite": bool(block.isfinite().all()),
+                        "launches": entry_launches, "dryrun_s": time.time() - t0,
+                        "dryrun_preds_shape": list(preds.shape), "dryrun_maps": len(scores)}
+        if not out["entry"]["finite"]:
+            fails.append("entry(): non-finite block scores")
+    finally:
+        dist.destroy_process_group()
+    if fails:
+        raise AssertionError(f"dist: {'; '.join(fails)}: {out}")
+    return out
 
 
 def kernels_line(results: dict) -> dict:
@@ -1381,6 +1790,7 @@ def kernels_line(results: dict) -> dict:
     its measurements from the kernel phase."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shapes = results.get("kernel", {}).get("shapes", [{}])
+    dist = results.get("dist", {})
     main_shape = shapes[0]
     wb_keys = (*keys, "max_rel_err", "library_ratio")
     kernels = [{
@@ -1388,10 +1798,15 @@ def kernels_line(results: dict) -> dict:
         "source": "multimodal_decoding_tpu_torch/csrc/chol_inv_panel.cu",
         "replaces": "multimodal_decoding_tpu/ops/pallas_solvers.py:133",
         "launches": results.get("cli", {}).get("launches"),
-        "launches_by_path": {"searchlight_cli": results.get("cli", {}).get("launches"),
-                             "whole_brain": results.get("wb", {}).get("launches"),
-                             "whole_brain_cli": results.get("wb_cli", {}).get("launches"),
-                             "study": results.get("study", {}).get("launches")},
+        "launches_by_path": {
+            "searchlight_cli": results.get("cli", {}).get("launches"),
+            "whole_brain": results.get("wb", {}).get("launches"),
+            "whole_brain_cli": results.get("wb_cli", {}).get("launches"),
+            "study": results.get("study", {}).get("launches"),
+            "streamed_ingestion": results.get("ingest", {}).get("launches"),
+            "vertex_sharded_searchlight": dist.get("searchlight", {}).get("launches"),
+            "feature_sharded_whole_brain_cli": dist.get("whole_brain_cli", {}).get("launches"),
+            "entry": dist.get("entry", {}).get("launches")},
         **{k: main_shape.get(k) for k in keys}, "max_rel_err": main_shape.get("max_rel_err"),
         "library_ratio": main_shape.get("library_ratio"),
         "whole_brain_shapes": [{k: m.get(k) for k in wb_keys} for m in shapes
@@ -1438,16 +1853,20 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
 
+    global WS
     results = {}
-    for name in phases:
-        t0 = time.time()
-        out = {"build": phase_build, "kernel": phase_kernel, "gate": phase_gate,
-               "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
-               "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
-               "study": phase_study, "wb_profile": phase_wb_profile,
-               "profile": lambda: phase_profile(args.scorer)}[name]()
-        results[name] = out
-        emit({"phase": name, "seconds": time.time() - t0, **out})
+    with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_") as root:
+        WS = Workspace(root)
+        for name in phases:
+            t0 = time.time()
+            out = {"build": phase_build, "kernel": phase_kernel, "gate": phase_gate,
+                   "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
+                   "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
+                   "study": phase_study, "ingest": phase_ingest, "dist": phase_dist,
+                   "wb_profile": phase_wb_profile,
+                   "profile": lambda: phase_profile(args.scorer)}[name]()
+            results[name] = out
+            emit({"phase": name, "seconds": time.time() - t0, **out})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

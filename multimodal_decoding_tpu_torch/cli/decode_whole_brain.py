@@ -3,11 +3,16 @@
 Port of ``multimodal_decoding_tpu/cli/decode_whole_brain.py`` with the same
 flags and defaults plus ``--device`` (default ``cuda``; ``--device cpu`` runs
 on the CPU, and without a GPU the run stops rather than falling back).
-``--multichip`` (the feature-sharded gram) is ROADMAP A11 and raises.
+``--multichip`` feature-shards the gram over the ranks of the world
+(``parallel/mesh.feature_mesh``): one process per GPU under ``torchrun``,
+and a world of one without it.  Started by ``torchrun`` the CLI shards the
+gram with or without the flag, and rank 0 writes ``results.p``.
 
     python -m multimodal_decoding_tpu_torch.cli.decode_whole_brain \\
         --betas-dir <betas> --subjects sub-01 --models imagebind --surface \\
         --out-dir <out>
+    torchrun --nproc-per-node 4 -m multimodal_decoding_tpu_torch.cli.decode_whole_brain \\
+        --multichip ...
 """
 
 import argparse
@@ -28,6 +33,7 @@ from multimodal_decoding_tpu_torch.config import (
     VISION_FEAT_COMBINATION_CHOICES,
 )
 from multimodal_decoding_tpu_torch.decoding.whole_brain import WholeBrainConfig, run
+from multimodal_decoding_tpu_torch.parallel.mesh import launched_world_size
 
 
 def get_args(argv=None):
@@ -51,8 +57,8 @@ def get_args(argv=None):
     parser.add_argument("--resolution", default=DEFAULT_RESOLUTION)
     parser.add_argument("--masks", nargs="+", type=str, default=[None])
     parser.add_argument("--multichip", action="store_true", default=False,
-                        help="feature-shard the gram over several GPUs; not ported "
-                             "yet (ROADMAP A11), raises")
+                        help="feature-shard the gram over the ranks of the world "
+                             "(torchrun: one process per GPU; alone: a world of one)")
     parser.add_argument("--overwrite", action="store_true", default=False)
     parser.add_argument("--out-dir", type=str, default=RIDGE_DECODER_OUT_DIR)
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -62,10 +68,6 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    if args.multichip:
-        raise NotImplementedError(
-            "--multichip (the feature-sharded gram over several GPUs) is not ported "
-            "yet (ROADMAP A11); the port runs on one device")
     os.makedirs(args.out_dir, exist_ok=True)
     cfg = WholeBrainConfig(
         betas_dir=args.betas_dir,
@@ -82,6 +84,7 @@ def main(argv=None):
         masks=args.masks,
         overwrite=args.overwrite,
         out_dir=args.out_dir,
+        mesh="auto" if args.multichip or launched_world_size() > 1 else None,
         device=args.device,
     )
     return run(cfg)

@@ -4,8 +4,10 @@ Port of ``multimodal_decoding_tpu/cli/permutation_testing.py`` with the same
 flags (and the shared ``add_searchlight_permutation_args`` argument set)
 plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the CPU, and
 without a GPU the run stops rather than falling back).  Mesh edges come from
-FreeSurfer geometry under ``--mesh-dir``; ``--sharded`` (the multi-GPU null
-sweep) is ROADMAP A11.
+FreeSurfer geometry under ``--mesh-dir``.  ``--sharded`` splits the group
+null over the ranks of the world (``parallel/mesh.vertex_mesh``): one
+process per GPU under ``torchrun``, a world of one without it.  Started by
+``torchrun`` the CLI shards with or without the flag; rank 0 writes.
 
     python -m multimodal_decoding_tpu_torch.cli.permutation_testing \\
         --subjects sub-01 sub-02 sub-03 --model imagebind --n-neighbors 750 \\
@@ -32,6 +34,7 @@ from multimodal_decoding_tpu_torch.config import (
 from multimodal_decoding_tpu_torch.decoding.permutation import PermutationConfig, run
 from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.io.surface import edge_lengths, read_freesurfer_geometry
+from multimodal_decoding_tpu_torch.parallel.mesh import launched_world_size, vertex_mesh
 
 
 def _alpha_key(value: str):
@@ -85,8 +88,8 @@ def get_args(argv=None):
                         default=SEARCHLIGHT_PERMUTATION_TESTING_RESULTS_DIR)
     parser.add_argument("--keep-null-maps", action="store_true", default=False)
     parser.add_argument("--sharded", action="store_true", default=False,
-                        help="permutation-sharded multi-GPU null sweep; not ported "
-                             "yet (ROADMAP A11)")
+                        help="split the group null's permutations over the ranks of "
+                             "the world (torchrun: one process per GPU; alone: one)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="device to run on (default cuda; no CPU fallback)")
     return parser.parse_args(argv)
@@ -94,10 +97,9 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (the multi-GPU null sweep) is not ported yet (ROADMAP A11)")
     resolve_device(args.device)  # no GPU and no --device cpu: stop before any work
+    device_mesh = (vertex_mesh(args.device) if args.sharded or launched_world_size() > 1
+                   else None)
     edges_by_hemi = {}
     for hemi in ("left", "right"):
         mesh = read_freesurfer_geometry(
@@ -135,7 +137,7 @@ def main(argv=None):
         keep_null_maps=args.keep_null_maps,
         device=args.device,
     )
-    return run(cfg)
+    return run(cfg, mesh=device_mesh)
 
 
 if __name__ == "__main__":

@@ -2,12 +2,15 @@
 
 Port of ``multimodal_decoding_tpu/cli/run_searchlight.py`` with the same
 flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the CPU,
-and without a GPU the run stops rather than falling back).
+and without a GPU the run stops rather than falling back).  Started by
+``torchrun`` (``WORLD_SIZE`` > 1) it splits every vertex block over the
+ranks of the world, one process per GPU, and rank 0 writes the artifacts.
 
     python -m multimodal_decoding_tpu_torch.cli.run_searchlight \\
         --betas-dir <betas>/surface --subjects sub-01 --model imagebind \\
         --n-neighbors 750 --l2-alphas 1e2 1e3 1e4 1e5 1e6 1e7 \\
         --create-null-distr --mesh-dir <surfaces> --out-dir <out>
+    torchrun --nproc-per-node 4 -m multimodal_decoding_tpu_torch.cli.run_searchlight ...
 """
 
 import argparse
@@ -30,6 +33,7 @@ from multimodal_decoding_tpu_torch.config import (
 )
 from multimodal_decoding_tpu_torch.decoding.searchlight import SearchlightConfig, run
 from multimodal_decoding_tpu_torch.io.surface import read_freesurfer_geometry
+from multimodal_decoding_tpu_torch.parallel.mesh import launched_world_size
 
 
 def load_mesh_coords(mesh_dir: str, resolution: str, hemis) -> dict:
@@ -76,8 +80,10 @@ def get_args(argv=None):
                              "'auto' = <out-dir>/.adjacency_cache, 'none' disables")
     parser.add_argument("--stream-ingest", type=str, default=None,
                         choices=["auto", "on", "off"],
-                        help="streamed betas ingestion; 'on' is not ported yet, "
-                             "auto/off load eagerly; unset = env MMD_STREAM_INGEST")
+                        help="stream the betas npz cache onto the device in O(chunk) "
+                             "host memory: 'on' (the cache must exist), 'off' (eager "
+                             "load), 'auto' (stream float32 caches over 2 GiB); "
+                             "unset = env MMD_STREAM_INGEST, default auto")
     parser.add_argument("--strict-cv", action="store_true", default=False,
                         help="select alphas with the strict Cholesky solve and "
                              "cosine-distance scorer instead of the fast path")
@@ -118,6 +124,7 @@ def main(argv=None):
             None if args.adjacency_cache_dir == "none"
             else os.path.join(args.out_dir, ".adjacency_cache")
             if args.adjacency_cache_dir == "auto" else args.adjacency_cache_dir),
+        mesh="auto" if launched_world_size() > 1 else None,
         device=args.device,
     )
     return run(cfg)

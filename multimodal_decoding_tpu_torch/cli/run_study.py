@@ -6,6 +6,8 @@ a GPU the run stops rather than falling back).  It drives
 ``decoding.study.run_study``: all training modes' null searchlights, then
 group permutation stats + TFCE significance, with the same idempotent
 skip/resume behaviour at every stage.  ``--fast-math`` is ROADMAP A15.
+Started by ``torchrun`` (``WORLD_SIZE`` > 1) both stages split their work
+over the ranks of the world, one process per GPU; rank 0 writes.
 
     python -m multimodal_decoding_tpu_torch.cli.run_study \\
         --betas-dir <betas>/surface --mesh-dir <surfaces> --model imagebind \\
@@ -30,6 +32,7 @@ from multimodal_decoding_tpu_torch.config import (
 from multimodal_decoding_tpu_torch.decoding.study import StudyConfig, run_study
 from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.io.surface import read_freesurfer_geometry
+from multimodal_decoding_tpu_torch.parallel.mesh import launched_world_size
 
 
 def _alpha_key(value: str):
@@ -107,6 +110,7 @@ def main(argv=None):
         permutation_out_dir=args.permutation_out_dir,
         block_size=args.block_size,
         fast_math=args.fast_math,
+        mesh="auto" if launched_world_size() > 1 else None,
         device=args.device,
     ))
     for hemi, p_vals in stats["p_values"].items():

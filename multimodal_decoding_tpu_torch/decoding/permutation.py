@@ -1,7 +1,6 @@
-"""Group-level permutation testing pipeline on one GPU.
+"""Group-level permutation testing pipeline on one GPU or a ``"v"`` mesh.
 
-Port of ``multimodal_decoding_tpu/decoding/permutation.py`` (its
-single-process path):
+Port of ``multimodal_decoding_tpu/decoding/permutation.py``:
 
 * per-vertex score lists -> full-vertex maps (``process_scores``): numpy
   scatter on dict-of-array score maps, a copy;
@@ -25,8 +24,14 @@ Every stage's output is cached at the JAX package's paths and layouts
 ``p_values<suffix>.p``, ``results_maps/*.gii``, ``masks<suffix>.p``,
 ``clusters<suffix>.p``) and skipped when present, so each package resumes
 from, and reads, the other's artifacts.  ``PermutationConfig.device`` picks
-the device (``None`` = ``cuda``, which raises without a GPU); a ``mesh``
-(multi-GPU) is ROADMAP A11.
+the device (``None`` = ``cuda``, which raises without a GPU).
+
+With a ``mesh`` (``parallel/mesh.vertex_mesh``, one process per GPU), each
+rank reads the null artifacts of its own subjects and one all_reduce
+assembles the stacks on every rank (``_stacked_null_scores``); each chunk of
+group permutations is split over the ranks and its min-maps all-gathered
+(``ops/stats.null_min_t_sweep``); every rank runs TFCE on all of them, as
+the JAX package does, and only rank 0 writes artifacts.
 """
 
 from __future__ import annotations
@@ -62,12 +67,11 @@ from multimodal_decoding_tpu_torch.io.gifti import export_to_gifti
 from multimodal_decoding_tpu_torch.ops import metrics as M
 from multimodal_decoding_tpu_torch.ops import stats as S
 from multimodal_decoding_tpu_torch.ops import tfce as T
-
-def _check_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (the permutation-sharded multi-GPU null sweep) is not "
-            "ported yet (ROADMAP A11); run on one device with mesh=None")
+from multimodal_decoding_tpu_torch.parallel.mesh import barrier, is_writer
+from multimodal_decoding_tpu_torch.parallel.multihost import (
+    host_shard_bounds,
+    replicate_host_filled,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -323,11 +327,34 @@ def assemble_null_scores(cfg: PermutationConfig, subject: str, hemi: str) -> dic
     return {k: np.ascontiguousarray(v.T.astype(np.float32)) for k, v in maps.items()}
 
 
-def _stacked_null_scores(cfg: PermutationConfig, hemi: str, members) -> dict:
-    """{metric: [S, P_within, V]} per-subject null stacks for one hemi, all
-    read by this one process (per-host reading is ROADMAP A11)."""
-    subj_nulls = [assemble_null_scores(cfg, s, hemi) for s in cfg.subjects]
-    return {m: np.stack([sn[m] for sn in subj_nulls]) for m in members}
+def _stacked_null_scores(cfg: PermutationConfig, hemi: str, members, mesh=None) -> dict:
+    """{metric: [S, P_within, V]} per-subject null stacks for one hemi.
+
+    Without a mesh (or in a world of one) this process reads every subject
+    and returns numpy stacks.  With a mesh each rank reads only its subjects
+    (``host_shard_bounds`` over the subject list) and one all_reduce per
+    metric gives every rank the union as a tensor on its device
+    (``replicate_host_filled``).  A rank that owns no subject learns the fill
+    shape from rank 0, which always owns subject 0.
+    """
+    if mesh is None or mesh.size == 1:
+        subj_nulls = [assemble_null_scores(cfg, s, hemi) for s in cfg.subjects]
+        return {m: np.stack([sn[m] for sn in subj_nulls]) for m in members}
+    n_subj = len(cfg.subjects)
+    lo, hi = host_shard_bounds(n_subj, mesh.rank, mesh.size)
+    owned = {s: assemble_null_scores(cfg, cfg.subjects[s], hemi) for s in range(lo, hi)}
+    shape = torch.zeros(2, dtype=torch.int64, device=mesh.device)
+    if owned:
+        shape[:] = torch.as_tensor(next(iter(owned.values()))[members[0]].shape)
+    torch.distributed.broadcast(shape, src=0)
+    p_within, v = shape.tolist()
+    out = {}
+    for metric in members:
+        fill = np.zeros((n_subj, p_within, v), np.float32)
+        for s, maps in owned.items():
+            fill[s] = maps[metric]
+        out[metric] = replicate_host_filled(fill, mesh)
+    return out
 
 
 def _max_ignoring_nan(maps: np.ndarray) -> np.ndarray:
@@ -339,9 +366,10 @@ def null_max_tfce_statistics(cfg: PermutationConfig, mesh=None) -> dict:
 
     Returns {"null_max": [P_group] max TFCE across hemis} and caches it to
     <results>/null_max<hparams>.npz (written atomically: a killed run never
-    leaves a truncated file that poisons the cache).
+    leaves a truncated file that poisons the cache).  With ``mesh`` the
+    permutations of each chunk are split over the ranks (see the module
+    docstring); every rank returns the same ``null_max`` and rank 0 writes.
     """
-    _check_no_mesh(mesh)
     out_dir = permutation_results_dir(cfg)
     os.makedirs(out_dir, exist_ok=True)
     cache = os.path.join(out_dir, f"null_max{get_hparam_suffix(cfg)}.npz")
@@ -349,13 +377,13 @@ def null_max_tfce_statistics(cfg: PermutationConfig, mesh=None) -> dict:
         z = np.load(cache)
         return {"null_max": z["null_max"]}
 
-    device = resolve_device(cfg.device)
+    device = mesh.device if mesh is not None else resolve_device(cfg.device)
     members = S.COMPOSITE_METRICS.get(cfg.metric, [cfg.metric])
     popmeans = [_chance(m) for m in members]
     n_group = cfg.n_permutations_group_level
     null_max = np.full(n_group, -np.inf, dtype=np.float64)
     for hemi in cfg.hemis:
-        stacks = _stacked_null_scores(cfg, hemi, members)
+        stacks = _stacked_null_scores(cfg, hemi, members, mesh)
         p_within = stacks[members[0]].shape[1]
         perms = S.group_permutations(p_within, len(cfg.subjects), n_group)
         scores = [torch.as_tensor(stacks.pop(m), device=device) for m in members]
@@ -366,7 +394,7 @@ def null_max_tfce_statistics(cfg: PermutationConfig, mesh=None) -> dict:
         # array is several times slower (PERF.md, phase stats)
         host = torch.empty((min(cfg.null_chunk, n_group), scores[0].shape[-1]),
                            dtype=torch.float32, pin_memory=device.type == "cuda")
-        for start, t_min in S.null_min_t_sweep(scores, perms, popmeans, cfg.null_chunk):
+        for start, t_min in S.null_min_t_sweep(scores, perms, popmeans, cfg.null_chunk, mesh):
             maps = host[:len(t_min)].copy_(t_min).numpy()
             tfce_chunk = T.tfce_map(maps, edges, lengths,
                                     h=cfg.tfce_h, e=cfg.tfce_e, dh=cfg.tfce_dh)
@@ -374,16 +402,17 @@ def null_max_tfce_statistics(cfg: PermutationConfig, mesh=None) -> dict:
             if cfg.keep_null_maps:
                 kept.append(tfce_chunk)
         del scores, host
-        if cfg.keep_null_maps:
+        if cfg.keep_null_maps and is_writer(mesh):
             np.savez_compressed(
                 os.path.join(out_dir, f"tfce_null_maps_{hemi}{get_hparam_suffix(cfg)}.npz"),
                 tfce=np.concatenate(kept),
             )
         null_max = np.maximum(null_max, hemi_max)
 
-    tmp = cache + f".{os.getpid()}.tmp.npz"
-    np.savez(tmp, null_max=null_max)
-    os.replace(tmp, cache)
+    if is_writer(mesh):
+        tmp = cache + f".{os.getpid()}.tmp.npz"
+        np.savez(tmp, null_max=null_max)
+        os.replace(tmp, cache)
     return {"null_max": null_max}
 
 
@@ -393,33 +422,40 @@ def null_max_tfce_statistics(cfg: PermutationConfig, mesh=None) -> dict:
 
 
 def calc_test_statistics(cfg: PermutationConfig, mesh=None) -> dict:
-    """Observed t -> TFCE -> p-values (parity: :296-346), cached per stage."""
-    _check_no_mesh(mesh)
-    device = resolve_device(cfg.device)
+    """Observed t -> TFCE -> p-values (parity: :296-346), cached per stage.
+
+    Under a mesh every rank computes the observed maps (they are small) and
+    rank 0 writes them.
+    """
+    device = mesh.device if mesh is not None else resolve_device(cfg.device)
     out_dir = permutation_results_dir(cfg)
     os.makedirs(out_dir, exist_ok=True)
-
     t_values_path = os.path.join(out_dir, "t_values.p")
-    if not os.path.isfile(t_values_path):
+    tfce_path = os.path.join(out_dir, f"tfce_values{get_hparam_suffix(cfg)}.p")
+    have_t, have_tfce = os.path.isfile(t_values_path), os.path.isfile(tfce_path)
+    barrier(mesh)  # every rank has looked before rank 0 writes either file
+
+    if not have_t:
         per_subject_scores = load_per_subject_scores(cfg)
         t_values = calc_t_values(per_subject_scores, cfg.subjects, cfg.hemis, device)
-        artifacts.save_pickle(t_values, t_values_path)
+        if is_writer(mesh):
+            artifacts.save_pickle(t_values, t_values_path)
     else:
         t_values = artifacts.load_pickle(t_values_path)
 
-    tfce_path = os.path.join(out_dir, f"tfce_values{get_hparam_suffix(cfg)}.p")
-    if not os.path.isfile(tfce_path):
+    if not have_tfce:
         edges_by_hemi = {h: cfg.edges_by_hemi[h][0] for h in cfg.hemis}
         lengths_by_hemi = {h: cfg.edges_by_hemi[h][1] for h in cfg.hemis}
         tfce_values = T.calc_tfce_values(
             t_values, edges_by_hemi, cfg.metric, h=cfg.tfce_h, e=cfg.tfce_e,
             dh=cfg.tfce_dh, edge_lengths_by_hemi=lengths_by_hemi, hemis=cfg.hemis,
         )
-        artifacts.save_pickle(tfce_values, tfce_path)
+        if is_writer(mesh):
+            artifacts.save_pickle(tfce_values, tfce_path)
     else:
         tfce_values = artifacts.load_pickle(tfce_path)
 
-    null = null_max_tfce_statistics(cfg)
+    null = null_max_tfce_statistics(cfg, mesh)
     cutoff, null_sorted = S.significance_cutoff(null["null_max"], cfg.p_value_threshold)
 
     p_values = {}
@@ -430,9 +466,10 @@ def calc_test_statistics(cfg: PermutationConfig, mesh=None) -> dict:
             n_pos = int(np.nansum(p_values[hemi] > 0))
         print(f"{hemi}: {n_pos} vertices with p-values; cutoff={cutoff:.3f}")
 
-    artifacts.save_pickle(
-        p_values, os.path.join(out_dir, f"p_values{get_hparam_suffix(cfg)}.p")
-    )
+    if is_writer(mesh):
+        artifacts.save_pickle(
+            p_values, os.path.join(out_dir, f"p_values{get_hparam_suffix(cfg)}.p")
+        )
     return {
         "t_values": t_values,
         "tfce_values": tfce_values,
@@ -442,16 +479,19 @@ def calc_test_statistics(cfg: PermutationConfig, mesh=None) -> dict:
     }
 
 
-def create_masks(cfg: PermutationConfig, stats: dict | None = None) -> dict:
-    """Binary masks + gifti maps + cluster tables (cluster_analysis.py:181-228)."""
+def create_masks(cfg: PermutationConfig, stats: dict | None = None, mesh=None) -> dict:
+    """Binary masks + gifti maps + cluster tables (cluster_analysis.py:181-228).
+    Under a mesh every rank computes them and rank 0 writes the files."""
     out_dir = permutation_results_dir(cfg)
     suffix = get_hparam_suffix(cfg)
-    stats = stats or calc_test_statistics(cfg)
+    stats = stats or calc_test_statistics(cfg, mesh)
     p_values = stats["p_values"]
     tfce_values = stats["tfce_values"]
+    write = is_writer(mesh)
 
     maps_dir = os.path.join(out_dir, "results_maps")
-    os.makedirs(maps_dir, exist_ok=True)
+    if write:
+        os.makedirs(maps_dir, exist_ok=True)
 
     fs_names = {"left": "lh", "right": "rh"}
     masks = {}
@@ -460,11 +500,13 @@ def create_masks(cfg: PermutationConfig, stats: dict | None = None) -> dict:
             log10p = np.where(
                 np.isnan(p_values[hemi]), np.nan, -np.log10(p_values[hemi])
             )
-        export_to_gifti(log10p, os.path.join(maps_dir, f"p_values{suffix}_{fs_names[hemi]}.gii"))
-        export_to_gifti(
-            np.asarray(tfce_values[hemi][cfg.metric]),
-            os.path.join(maps_dir, f"tfce_values{suffix}_{fs_names[hemi]}.gii"),
-        )
+        if write:
+            export_to_gifti(log10p,
+                            os.path.join(maps_dir, f"p_values{suffix}_{fs_names[hemi]}.gii"))
+            export_to_gifti(
+                np.asarray(tfce_values[hemi][cfg.metric]),
+                os.path.join(maps_dir, f"tfce_values{suffix}_{fs_names[hemi]}.gii"),
+            )
 
         if cfg.tfce_value_threshold is not None:
             vals = np.asarray(tfce_values[hemi][cfg.metric])
@@ -475,9 +517,9 @@ def create_masks(cfg: PermutationConfig, stats: dict | None = None) -> dict:
                 m = (p_values[hemi] <= cfg.p_value_threshold)
             m = np.where(np.isnan(p_values[hemi]), False, m).astype(np.uint8)
         masks[hemi] = m
-        export_to_gifti(
-            m.astype(np.float32), os.path.join(maps_dir, f"mask{suffix}_{fs_names[hemi]}.gii")
-        )
+        if write:
+            export_to_gifti(m.astype(np.float32),
+                            os.path.join(maps_dir, f"mask{suffix}_{fs_names[hemi]}.gii"))
 
     # cluster table over the mask (calc_clusters at threshold ~0, :105-122)
     clusters_table = []
@@ -499,19 +541,22 @@ def create_masks(cfg: PermutationConfig, stats: dict | None = None) -> dict:
             print(f"Cluster {hemi}/{i}: {len(cl)} vertices | "
                   f"max t={t_map_h[peak]:.2f} | peak vertex {peak}")
 
-    artifacts.save_pickle(masks, os.path.join(maps_dir, f"masks{suffix}.p"))
-    artifacts.save_pickle(clusters_table, os.path.join(maps_dir, f"clusters{suffix}.p"))
+    if write:
+        artifacts.save_pickle(masks, os.path.join(maps_dir, f"masks{suffix}.p"))
+        artifacts.save_pickle(clusters_table, os.path.join(maps_dir, f"clusters{suffix}.p"))
     return {"masks": masks, "clusters": clusters_table}
 
 
 def run(cfg: PermutationConfig, mesh=None) -> dict:
     """create_null_distribution -> calc_test_statistics -> create_masks (:666-675).
 
-    ``mesh`` (the multi-GPU sweep) is ROADMAP A11 and raises.
+    ``mesh``: a ``"v"`` mesh (``parallel/mesh.vertex_mesh``) splits the group
+    null over its ranks; every rank returns the same statistics and rank 0
+    writes the artifacts.
     """
-    _check_no_mesh(mesh)
     print(f"\nPermutation Testing for {cfg.metric}\n")
-    stats = calc_test_statistics(cfg)
-    out = create_masks(cfg, stats)
+    stats = calc_test_statistics(cfg, mesh)
+    out = create_masks(cfg, stats, mesh)
     out.update(stats)
+    barrier(mesh)  # every rank returns after rank 0 has written the artifacts
     return out

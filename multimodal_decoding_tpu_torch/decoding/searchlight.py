@@ -1,8 +1,12 @@
 """Surface searchlight pipeline driver.
 
 Port of ``multimodal_decoding_tpu/decoding/searchlight.py``: the subject x
-training-mode x hemisphere loop around the single-device runner
-(``parallel/searchlight_runner.py``).  The results pickle keeps the JAX
+training-mode x hemisphere loop around the runner
+(``parallel/searchlight_runner.py``), on one device or, with
+``SearchlightConfig.mesh``, on every rank of a ``"v"`` mesh (rank 0 writes
+the artifacts).  Betas come from the eager loader or, with
+``stream_ingest``, are streamed from the npz cache straight onto the device
+(``parallel/ingest.py``).  The results pickle keeps the JAX
 package's schema ({nan_locations, adjacency, n_neighbors, distances,
 score_maps, scores, best_alpha, elapsed_s, vertices_per_sec}) and the null
 distributions go to one ``null_distr.npz`` per (subject, mode, hemi), so
@@ -35,7 +39,7 @@ from multimodal_decoding_tpu_torch.config import (
     SUBJECTS,
     LatentFeatsConfig,
 )
-from multimodal_decoding_tpu_torch.data.betas import get_fmri_surface_data
+from multimodal_decoding_tpu_torch.data.betas import get_fmri_surface_data, surface_cache_path
 from multimodal_decoding_tpu_torch.data.features import get_latent_features
 from multimodal_decoding_tpu_torch.data.preprocess import (
     standardize_fmri_betas,
@@ -49,6 +53,17 @@ from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.io import artifacts
 from multimodal_decoding_tpu_torch.io.surface import knn_adjacency, radius_adjacency
 from multimodal_decoding_tpu_torch.ops import metrics as M
+from multimodal_decoding_tpu_torch.parallel.ingest import (
+    NpzMemberReader,
+    streamed_scaler_fit,
+    streamed_x_all_device,
+)
+from multimodal_decoding_tpu_torch.parallel.mesh import (
+    VERTEX_AXIS,
+    barrier,
+    is_writer,
+    resolve_mesh,
+)
 from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 from multimodal_decoding_tpu_torch.utils.runlog import RunLogger
 
@@ -137,9 +152,13 @@ class SearchlightConfig:
     fast_cv: bool = True
     # cache directory for the kNN/radius adjacency build (None disables)
     adjacency_cache_dir: str | None = None
-    # "auto"/"off" load eagerly; "on" (streamed ingestion) is ROADMAP A11.
-    # None reads env MMD_STREAM_INGEST, default "auto".
+    # streamed ingestion from the betas npz cache (parallel/ingest.py):
+    # "on" streams (the cache must exist), "off" loads eagerly, "auto"
+    # streams float32 caches over STREAM_AUTO_MIN_BYTES.  None reads env
+    # MMD_STREAM_INGEST, default "auto".
     stream_ingest: bool | str | None = None
+    # None: one device; "auto": the world's "v" mesh (parallel/mesh.py)
+    mesh: object = None
     device: str | None = None  # None = cuda
 
 
@@ -194,16 +213,67 @@ def build_adjacency(coords, nan_locations=None, radius=None, n_neighbors=None,
     raise RuntimeError("Need to set either radius or n_neighbors arg!")
 
 
-def _check_stream_ingest(mode) -> None:
-    """Resolve the ingestion mode; only the eager loader is ported."""
+#: "auto" streams a train betas cache larger than this (the JAX package's rule)
+STREAM_AUTO_MIN_BYTES = 2 << 30
+
+
+def _stream_ingest_mode(mode):
+    """``stream_ingest`` as True (on), False (off) or "auto"; None reads env
+    MMD_STREAM_INGEST (default "auto")."""
     if mode is None:
         mode = os.environ.get("MMD_STREAM_INGEST", "auto")
+    if isinstance(mode, bool):
+        return mode
     m = str(mode).lower()
     if m in ("1", "on", "true"):
-        raise NotImplementedError(
-            "stream_ingest=on (streamed betas ingestion) is not ported yet (ROADMAP A11)")
-    if m not in ("0", "off", "false", "auto"):
-        raise ValueError(f"stream_ingest: {mode!r} (use on/off/auto)")
+        return True
+    if m in ("0", "off", "false"):
+        return False
+    if m == "auto":
+        return "auto"
+    raise ValueError(f"stream_ingest: {mode!r} (use on/off/auto)")
+
+
+def _stream_ingest_readers(cfg: SearchlightConfig, subject, training_mode, hemi):
+    """Resolve the streaming-ingestion decision for one (subject, mode, hemi).
+
+    Returns [train, test, imagery] ``NpzMemberReader`` over the betas npz
+    caches, or None for the eager path.  "on" raises when the caches are
+    missing or not float32; "auto" streams only float32 caches whose train
+    file exceeds ``STREAM_AUTO_MIN_BYTES``, and otherwise loads eagerly (the
+    eager run builds the cache, so the next run streams).  Under a mesh
+    each rank streams its own replica.
+    """
+    mode = _stream_ingest_mode(cfg.stream_ingest)
+    if mode is False:
+        return None
+    paths = [
+        surface_cache_path(cfg.betas_dir, subject, SPLIT_TRAIN, training_mode, hemi),
+        surface_cache_path(cfg.betas_dir, subject, SPLIT_TEST, hemi=hemi),
+        surface_cache_path(cfg.betas_dir, subject, SPLIT_IMAGERY, hemi=hemi),
+    ]
+    missing = [p for p in paths if not os.path.isfile(p)]
+    if mode is True:
+        if missing:
+            raise FileNotFoundError(
+                f"stream_ingest=on but the betas npz cache is missing: "
+                f"{missing[0]} (run once with the eager loader to build it)"
+            )
+    elif missing or os.path.getsize(paths[0]) <= STREAM_AUTO_MIN_BYTES:
+        return None
+    try:
+        readers = [NpzMemberReader(p) for p in paths]
+    except ValueError:
+        if mode is True:
+            raise
+        return None
+    if any(r.dtype != np.float32 for r in readers):
+        if mode is True:
+            raise ValueError("streaming ingestion requires float32 betas caches")
+        return None
+    print("Streaming ingestion: standardize + upload in O(chunk) host RAM "
+          "(parallel/ingest.py)")
+    return readers
 
 
 def run(cfg: SearchlightConfig) -> list:
@@ -211,8 +281,9 @@ def run(cfg: SearchlightConfig) -> list:
     if cfg.fast_math:
         raise NotImplementedError(
             "fast_math (bf16 storage) is not ported yet (ROADMAP A15); the port runs float32")
-    _check_stream_ingest(cfg.stream_ingest)
-    device = resolve_device(cfg.device)
+    _stream_ingest_mode(cfg.stream_ingest)  # a bad value fails before any work
+    mesh = resolve_mesh(cfg.mesh, VERTEX_AXIS, cfg.device)
+    device = mesh.device if mesh is not None else resolve_device(cfg.device)
     use_cv = cfg.alphas_cv is not None
     shuffles = None
     if cfg.create_null_distr:
@@ -240,19 +311,30 @@ def run(cfg: SearchlightConfig) -> list:
                     print(f"Skipping searchlight: results at {results_path}")
                     continue
 
-                train_fmri, _, _ = get_fmri_surface_data(
-                    cfg.betas_dir, subject, SPLIT_TRAIN, training_mode, hemi
-                )
-                test_fmri, _, _ = get_fmri_surface_data(
-                    cfg.betas_dir, subject, SPLIT_TEST, hemi=hemi
-                )
-                imagery_fmri, _, _ = get_fmri_surface_data(
-                    cfg.betas_dir, subject, SPLIT_IMAGERY, hemi=hemi
-                )
-                nan_locations = np.isnan(train_fmri[0])
-                train_fmri, test_fmri, imagery_fmri = standardize_fmri_betas(
-                    train_fmri, test_fmri, imagery_fmri
-                )
+                stream_readers = _stream_ingest_readers(cfg, subject, training_mode, hemi)
+                x_all_device = n_rows_split = None
+                if stream_readers is not None:
+                    train_fmri = test_fmri = imagery_fmri = None
+                    nan_locations = np.isnan(stream_readers[0].read_row(0))
+                    keep = ~nan_locations
+                    mean32, scale32 = streamed_scaler_fit(stream_readers[0], keep)
+                    x_all_device = streamed_x_all_device(stream_readers, keep, mean32,
+                                                         scale32, device=device)
+                    n_rows_split = tuple(r.n_rows for r in stream_readers)
+                else:
+                    train_fmri, _, _ = get_fmri_surface_data(
+                        cfg.betas_dir, subject, SPLIT_TRAIN, training_mode, hemi
+                    )
+                    test_fmri, _, _ = get_fmri_surface_data(
+                        cfg.betas_dir, subject, SPLIT_TEST, hemi=hemi
+                    )
+                    imagery_fmri, _, _ = get_fmri_surface_data(
+                        cfg.betas_dir, subject, SPLIT_IMAGERY, hemi=hemi
+                    )
+                    nan_locations = np.isnan(train_fmri[0])
+                    train_fmri, test_fmri, imagery_fmri = standardize_fmri_betas(
+                        train_fmri, test_fmri, imagery_fmri
+                    )
 
                 print(
                     f"\nTRAIN MODE: {training_mode} | SUBJECT: {subject} | "
@@ -284,7 +366,10 @@ def run(cfg: SearchlightConfig) -> list:
                     shuffles=shuffles,
                     block_size=cfg.block_size,
                     progress=cfg.progress,
+                    mesh=mesh,
                     device=device,
+                    x_all_device=x_all_device,
+                    n_rows_split=n_rows_split,
                     cv_solver=(default_cv_solver(device)
                                if cfg.fast_cv and use_cv else None),
                     cv_scorer="xla" if cfg.fast_cv else "strict",
@@ -294,6 +379,7 @@ def run(cfg: SearchlightConfig) -> list:
                     # mid-run checkpoint must not silently resume under it
                     resume=not cfg.overwrite,
                 )
+                del x_all_device
                 print(f"Searchlight time: {int(time.time() - t0)}s "
                       f"({aux['vertices_per_sec']:.0f} vertices/s)")
 
@@ -303,6 +389,9 @@ def run(cfg: SearchlightConfig) -> list:
                     print(f"Mean score ({metric}): {np.mean(vals):.2f} | "
                           f"Max score: {np.max(vals):.2f}")
 
+                outputs.append(results_path)
+                if not is_writer(mesh):
+                    continue
                 results_dict = {
                     "nan_locations": nan_locations,
                     "adjacency": adjacency,
@@ -331,5 +420,5 @@ def run(cfg: SearchlightConfig) -> list:
                         os.path.join(os.path.dirname(results_path), "null_distr.npz"),
                         aux["null_scores"],
                     )
-                outputs.append(results_path)
+    barrier(mesh)  # every rank returns after rank 0 has written the artifacts
     return outputs

@@ -5,7 +5,9 @@ pipeline is a DAG of separate CLIs the user must sequence by hand
 (searchlight per training mode with --create-null-distr, then
 searchlight_permutation_testing).  This driver runs the whole study from one
 config with the same idempotent skip/resume behaviour at every stage, on
-``StudyConfig.device`` (``None`` = ``cuda``, which raises without a GPU).
+``StudyConfig.device`` (``None`` = ``cuda``, which raises without a GPU) or,
+with ``StudyConfig.mesh``, on every rank of a ``"v"`` mesh: the searchlight
+blocks and the group permutations are split over the ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from multimodal_decoding_tpu_torch.decoding.permutation import run as run_permut
 from multimodal_decoding_tpu_torch.decoding.searchlight import SearchlightConfig
 from multimodal_decoding_tpu_torch.decoding.searchlight import run as run_searchlight_driver
 from multimodal_decoding_tpu_torch.io.surface import edge_lengths
+from multimodal_decoding_tpu_torch.parallel.mesh import VERTEX_AXIS, resolve_mesh
 
 
 @dataclass
@@ -63,12 +66,15 @@ class StudyConfig:
     # of the study: the kNN build is identical for all of them.  "auto" =
     # <searchlight_out_dir>/.adjacency_cache (the CLI default); None disables.
     adjacency_cache_dir: str | None = "auto"
+    # None: one device; "auto": the world's "v" mesh (parallel/mesh.py)
+    mesh: object = None
     device: str | None = None  # None = cuda
 
 
 def run_study(cfg: StudyConfig) -> dict:
     """Searchlight all training modes (with nulls) then permutation testing."""
     coords = {h: m.coordinates for h, m in cfg.meshes.items()}
+    mesh = resolve_mesh(cfg.mesh, VERTEX_AXIS, cfg.device)
     # "cv" is the permutation stage's artifact path key; the searchlight
     # stage realises it as per-vertex alpha-CV over DEFAULT_ALPHAS
     # (SearchlightConfig.alphas_cv), which writes under that same key
@@ -96,6 +102,7 @@ def run_study(cfg: StudyConfig) -> dict:
         fast_math=cfg.fast_math,
         progress=cfg.progress,
         adjacency_cache_dir=adj_cache,
+        mesh=mesh,
         device=cfg.device,
     )
     searchlight_outputs = []
@@ -129,7 +136,7 @@ def run_study(cfg: StudyConfig) -> dict:
         out_dir=cfg.permutation_out_dir,
         device=cfg.device,
     )
-    stats = run_permutation(pcfg)
+    stats = run_permutation(pcfg, mesh=mesh)
     stats["searchlight_outputs"] = searchlight_outputs
     stats["permutation_config"] = pcfg
     return stats

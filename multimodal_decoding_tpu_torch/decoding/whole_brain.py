@@ -9,7 +9,11 @@ tensors), and lives at the same path, so each package reads and skips the
 other's results.
 
 ``WholeBrainConfig.device`` picks the device (``None`` = ``cuda``, which
-raises without a GPU).  The CV selection solver is ``default_wb_cv_solver``:
+raises without a GPU).  ``WholeBrainConfig.mesh="auto"`` (the CLI's
+``--multichip``) feature-shards the kernels over the world's ranks
+(``parallel/mesh.feature_mesh``): each rank streams its column range and the
+partial kernels are summed by one all_reduce; every rank then decodes the
+same replicated kernels and rank 0 writes ``results.p``.  The CV selection solver is ``default_wb_cv_solver``:
 ``"schur-pallas"`` on CUDA, whose base blocks launch the hand-written panel
 kernel (held to the strict path by chip_smoke.py phase ``wb_gate``), and the
 strict Cholesky solve on the CPU.
@@ -49,10 +53,15 @@ from multimodal_decoding_tpu_torch.data.preprocess import (
 from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
 from multimodal_decoding_tpu_torch.ops import metrics as M
 from multimodal_decoding_tpu_torch.ops.ridge import (
-    check_no_mesh,
     dual_ridge_predict,
     ridge_cv_dual,
     streamed_kernels,
+)
+from multimodal_decoding_tpu_torch.parallel.mesh import (
+    FEATURE_AXIS,
+    barrier,
+    is_writer,
+    resolve_mesh,
 )
 from multimodal_decoding_tpu_torch.utils.runlog import RunLogger
 
@@ -93,7 +102,8 @@ class WholeBrainConfig:
     masks: list = field(default_factory=lambda: [None])
     overwrite: bool = False
     out_dir: str = RIDGE_DECODER_OUT_DIR
-    # a feature mesh (multi-GPU gram) is ROADMAP A11; only None runs
+    # None: one device; "auto": the world's "f" mesh (parallel/mesh.py), or a
+    # parallel/mesh.Mesh
     mesh: object = None
     device: str | None = None  # None = cuda
 
@@ -104,15 +114,16 @@ class GramCache:
     ``K = X X^T`` and the query kernels ``K_test``, ``K_imag`` depend only on
     the betas, not on the latent model, so a multi-model sweep shares them.
     They are built in one pass over the train betas' column blocks (each
-    block crosses to the device once) and stay on ``device``.
+    block crosses to the device once) and stay on ``device``.  With a
+    feature ``mesh`` each rank streams its column range and every rank holds
+    the summed kernels on ``mesh.device``.
     """
 
     def __init__(self, train_betas, test_betas, imagery_betas, mesh=None, device=None):
-        check_no_mesh(mesh)
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         t0 = time.time()
         self.K, (self.K_test, self.K_imag) = streamed_kernels(
-            train_betas, (test_betas, imagery_betas), device=self.device)
+            train_betas, (test_betas, imagery_betas), mesh=mesh, device=self.device)
         synchronize(self.device)
         self.gram_seconds = time.time() - t0
 
@@ -180,8 +191,8 @@ def decode_single(
 
 def run(cfg: WholeBrainConfig) -> list:
     """Pipeline loop: training_mode x subject x mask x model (parity :45-187)."""
-    check_no_mesh(cfg.mesh)
-    device = resolve_device(cfg.device)
+    mesh = resolve_mesh(cfg.mesh, FEATURE_AXIS, cfg.device)
+    device = mesh.device if mesh is not None else resolve_device(cfg.device)
     all_results = []
     for training_mode in cfg.training_modes:
         for subject in cfg.subjects:
@@ -232,7 +243,8 @@ def run(cfg: WholeBrainConfig) -> list:
                     )
 
                     if gram_cache is None:
-                        gram_cache = GramCache(train_b, test_b, imag_b, device=device)
+                        gram_cache = GramCache(train_b, test_b, imag_b, mesh=mesh,
+                                               device=device)
                     best_alpha, test_preds, imag_preds, cv_scores, fit_s = decode_single(
                         train_b, test_b, imag_b, train_lat, test_lat, imag_lat,
                         cfg.alphas, cfg.n_splits, gram_cache=gram_cache, device=device,
@@ -276,16 +288,20 @@ def run(cfg: WholeBrainConfig) -> list:
                         f"imagery whole test: {results[M.ACC_IMAGERY_WHOLE_TEST]:.2f}"
                     )
 
-                    os.makedirs(os.path.dirname(results_file_path), exist_ok=True)
-                    with open(results_file_path, "wb") as f:
-                        pickle.dump(results, f)
-                    RunLogger(results_file_path + ".runlog.jsonl", echo=False).event(
-                        "whole_brain_decode",
-                        subject=subject, model=model, training_mode=training_mode,
-                        best_alpha=best_alpha, fit_seconds=fit_s,
-                        num_voxels=int(test_b.shape[1]),
-                        scores={k: float(v) for k, v in scores.items()},
-                    )
+                    if is_writer(mesh):
+                        os.makedirs(os.path.dirname(results_file_path), exist_ok=True)
+                        with open(results_file_path, "wb") as f:
+                            pickle.dump(results, f)
+                        RunLogger(results_file_path + ".runlog.jsonl", echo=False).event(
+                            "whole_brain_decode",
+                            subject=subject, model=model, training_mode=training_mode,
+                            best_alpha=best_alpha, fit_seconds=fit_s,
+                            num_voxels=int(test_b.shape[1]),
+                            scores={k: float(v) for k, v in scores.items()},
+                        )
+                    # a later model's skip check runs after this write on every
+                    # rank (no collective orders them otherwise)
+                    barrier(mesh)
                     all_results.append(results)
 
                     scores_no_std = M.calc_all_pairwise_accuracy_scores(

@@ -17,9 +17,10 @@ the Schur recursion whose base blocks launch the panel kernel); the refit is
 always the strict Cholesky solve.
 
 Every product runs in float32 with TF32 off (``device.py``).  Each function
-takes ``device`` (``None``: cuda, which raises without a GPU); a feature
-``mesh`` (the JAX package's tensor-parallel gram) is multi-GPU work, ROADMAP
-A11, and raises.
+takes ``device`` (``None``: cuda, which raises without a GPU).  The kernels
+take a feature ``mesh`` (``parallel/mesh.feature_mesh``, the JAX package's
+tensor-parallel gram): each rank streams only its column range of the host
+betas and one all_reduce sums the partial kernels.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_decoding_tpu_torch.device import as_float32, resolve_device, synchronize
 from multimodal_decoding_tpu_torch.ops.metrics import pairwise_accuracy
 from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse
+from multimodal_decoding_tpu_torch.parallel.multihost import host_shard_bounds
 
 #: Width of the alpha-selection tie band (see first_argmax_with_tol).
 ALPHA_TIE_TOL = 1e-6
@@ -68,14 +71,6 @@ def kfold_indices(n_samples: int, n_splits: int):
         folds.append((train, val))
         current += size
     return folds
-
-
-def check_no_mesh(mesh) -> None:
-    """Raise for a feature mesh: the multi-GPU gram is ROADMAP A11."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a feature mesh (multi-GPU gram) is not ported yet (ROADMAP A11); "
-            "the port runs on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -140,21 +135,32 @@ class _ColumnBlocks:
 
 
 def streamed_kernels(X_train: np.ndarray, queries=(), block_cols: int = 16384,
-                     with_gram: bool = True, device=None):
+                     with_gram: bool = True, mesh=None, device=None):
     """``K = X X^T`` and ``Xq X^T`` for each query, in one pass over X's columns.
 
     Each column block of ``X_train`` crosses to the device once and feeds the
-    gram and every query kernel.  Returns ``(K or None, [Kq, ...])``.
+    gram and every query kernel.  With a feature ``mesh`` this rank streams
+    only its columns ``host_shard_bounds(f, rank, W)`` (any f: the ranges may
+    differ by one column), and one all_reduce per kernel sums the ranks'
+    partial products, so every rank returns the whole kernels.  Returns
+    ``(K or None, [Kq, ...])``.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    arrays = [X_train, *queries]
+    if mesh is not None:
+        lo, hi = host_shard_bounds(X_train.shape[1], mesh.rank, mesh.size)
+        arrays = [np.asarray(a)[:, lo:hi] for a in arrays]
     n = X_train.shape[0]
     K = torch.zeros((n, n), dtype=torch.float32, device=device) if with_gram else None
     Kq = [torch.zeros((q.shape[0], n), dtype=torch.float32, device=device) for q in queries]
-    for xt, *xqs in _ColumnBlocks([X_train, *queries], block_cols, device):
+    for xt, *xqs in _ColumnBlocks(arrays, block_cols, device):
         if with_gram:
             K.addmm_(xt, xt.mT)
         for k, xq in zip(Kq, xqs):
             k.addmm_(xq, xt.mT)
+    if mesh is not None:
+        for k in [K, *Kq] if with_gram else Kq:
+            dist.all_reduce(k)
     return K, Kq
 
 
@@ -162,17 +168,16 @@ def gram_matrix(X: np.ndarray, block_cols: int = 16384, mesh=None, device=None) 
     """K = X X^T streamed over column blocks (host -> device), strict float32.
 
     The full X (e.g. [8k, 327k] float32, ~11 GB) need not fit on the device:
-    each block is transferred, multiplied and accumulated.
+    each block is transferred, multiplied and accumulated.  ``mesh``: see
+    ``streamed_kernels``.
     """
-    check_no_mesh(mesh)
-    return streamed_kernels(X, (), block_cols, device=device)[0]
+    return streamed_kernels(X, (), block_cols, mesh=mesh, device=device)[0]
 
 
 def cross_matrix(X_query: np.ndarray, X_train: np.ndarray, block_cols: int = 16384,
                  mesh=None, device=None) -> torch.Tensor:
     """K_query = Xq X^T streamed over column blocks."""
-    check_no_mesh(mesh)
-    return streamed_kernels(X_train, (X_query,), block_cols, with_gram=False,
+    return streamed_kernels(X_train, (X_query,), block_cols, with_gram=False, mesh=mesh,
                             device=device)[1][0]
 
 
@@ -234,7 +239,6 @@ def ridge_cv_dual(
     n_splits: int = 5,
     scorer: Callable | None = None,
     cv_solver: str | None = None,
-    mesh=None,
     device=None,
     timings: dict | None = None,
 ):
@@ -247,9 +251,9 @@ def ridge_cv_dual(
     ``cv_solver``: the selection solver (see _cv_fold_scores); the refit is
     always the strict Cholesky solve.  ``timings``: if a dict, its
     ``cv_s`` and ``refit_s`` get the seconds of the two stages, each ended
-    by a device synchronisation.
+    by a device synchronisation.  ``K`` is the whole gram (replicated under
+    a feature mesh): there is nothing to shard here.
     """
-    check_no_mesh(mesh)
     device = resolve_device(device)
     t0 = time.time()
     K, Y = as_float32(K, device), as_float32(Y, device)

@@ -5,7 +5,9 @@ subject-by-vertex score tensor maps to a ``[V]`` t-map in one pass on the
 device, and the group null is one gather per chunk of permutations:
 ``scores[arange(S), perms]`` -> ``[C, S, V]`` -> ``[C, V]`` t-maps, with the
 composite metric's member-wise minimum kept on the device
-(``null_min_t_maps``).  The numpy helpers (``group_permutations``,
+(``null_min_t_maps``).  With a ``"v"`` mesh the sweep splits each chunk of
+permutations over the ranks and all-gathers the min-maps
+(``null_min_t_sweep``).  The numpy helpers (``group_permutations``,
 ``p_values_from_null_max``, ``significance_cutoff``) are copies.
 
 Arithmetic follows the JAX functions: the variance is two-pass (mean, then
@@ -29,6 +31,8 @@ from multimodal_decoding_tpu_torch.config import (
     METRIC_MOD_AGNOSTIC_AND_CROSS,
 )
 from multimodal_decoding_tpu_torch.device import as_float32
+from multimodal_decoding_tpu_torch.parallel.mesh import pad_to_multiple
+from multimodal_decoding_tpu_torch.parallel.multihost import all_gather_rows, host_shard_bounds
 from multimodal_decoding_tpu_torch.ops.metrics import (
     ACC_CAPTIONS_MOD_AGNOSTIC,
     ACC_CAPTIONS_MOD_SPECIFIC_CAPTIONS,
@@ -171,12 +175,25 @@ def null_min_t_maps(stacks, permutations, popmeans) -> torch.Tensor:
     return torch.where(torch.isinf(t_min), nan, t_min)
 
 
-def null_min_t_sweep(stacks, permutations, popmeans, chunk: int):
+def null_min_t_sweep(stacks, permutations, popmeans, chunk: int, mesh=None):
     """The group-null sweep: yields ``(start, [c, V] t_min)`` per chunk of
-    ``chunk`` permutations, each computed on the stacks' device."""
+    ``chunk`` permutations, each computed on the stacks' device.
+
+    With a ``mesh`` (every rank holds the same stacks), each chunk is padded
+    to a multiple of the world size by repeating its first permutation, each
+    rank sweeps its slice, and one all_gather gives every rank the chunk's
+    min-maps (a collective per chunk).
+    """
     permutations = np.asarray(permutations)
     for start in range(0, len(permutations), chunk):
-        yield start, null_min_t_maps(stacks, permutations[start:start + chunk], popmeans)
+        block = permutations[start:start + chunk]
+        if mesh is None:
+            yield start, null_min_t_maps(stacks, block, popmeans)
+            continue
+        padded, n_block = pad_to_multiple(block, mesh.size)
+        lo, hi = host_shard_bounds(len(padded), mesh.rank, mesh.size)
+        yield start, all_gather_rows(null_min_t_maps(stacks, padded[lo:hi], popmeans),
+                                     mesh)[:n_block]
 
 
 def group_permutations(n_within: int, n_subjects: int, n_group: int) -> np.ndarray:

@@ -1,16 +1,22 @@
-"""Single-device searchlight runner: vertex blocks -> score maps.
+"""Vertex-sharded searchlight runner: vertex blocks -> score maps.
 
-Port of ``multimodal_decoding_tpu/parallel/searchlight_runner.py`` for one
-GPU: the padded adjacency is cut into blocks of B vertices, each block runs
-one block step of ``decoding/searchlight_engine`` on the device, and the
-per-block score vectors come back to host numpy every few blocks.  Meshes,
-multi-host runs and streamed ingestion are ROADMAP A11.
+Port of ``multimodal_decoding_tpu/parallel/searchlight_runner.py``: the
+padded adjacency is cut into blocks of B vertices, each block runs one block
+step of ``decoding/searchlight_engine`` on the device, and the per-block
+score vectors come back to host numpy every few blocks.
+
+With a ``"v"`` mesh (``parallel/mesh.vertex_mesh``: one process per GPU),
+each block is split over the ranks: rank r runs rows ``host_shard_bounds(B,
+r, W)`` of the block through the same engine call, and every block's
+outputs are all-gathered on every rank, block by block in the same order.
+Only rank 0 writes the checkpoint.
 
 Imagery derangements: block ``b``'s ``[B, P]`` choices are the JAX runner's
 ``jax.random.randint(fold_in(PRNGKey(null_seed), b), (B, P), 0, 2)``,
-computed in numpy (``utils/threefry.py``), so both packages write the same
-null scores for the same ``null_seed``.  ``imagery_derangements`` (one row
-per padded vertex) overrides the draw.
+computed in numpy (``utils/threefry.py``) for the whole block before a rank
+takes its rows, so the nulls do not depend on the world size and both
+packages write the same null scores for the same ``null_seed``.
+``imagery_derangements`` (one row per padded vertex) overrides the draw.
 """
 
 from __future__ import annotations
@@ -30,23 +36,18 @@ from multimodal_decoding_tpu_torch.decoding.searchlight_engine import (
     searchlight_block_with_null,
 )
 from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
+from multimodal_decoding_tpu_torch.parallel.mesh import barrier, is_writer, pad_to_multiple
+from multimodal_decoding_tpu_torch.parallel.multihost import host_numpy, host_shard_bounds
 from multimodal_decoding_tpu_torch.utils import threefry
 
 
-def pad_to_multiple(arr: np.ndarray, multiple: int):
-    """Pad axis 0 up to a multiple by repeating the first row; returns
-    (padded, original_length).  Padded vertices recompute vertex 0 and are
-    dropped on the host."""
-    n = arr.shape[0]
-    pad_n = -n % multiple
-    if pad_n == 0:
-        return arr, n
-    return np.concatenate([arr, np.repeat(arr[:1], pad_n, axis=0)]), n
-
-
-def _auto_block_size(n_rows: int, k: int, budget_bytes: int = 2 << 30) -> int:
-    """Pick a vertex block size so the gathered patch tensor fits the budget."""
-    return int(min(max(1, budget_bytes // (n_rows * k * 4)), 4096))
+def _auto_block_size(n_rows: int, k: int, n_devices: int = 1,
+                     budget_bytes: int = 2 << 30) -> int:
+    """Pick a vertex block size so the gathered patch tensor fits the budget,
+    rounded down to a multiple of the world size (at least one row a rank)."""
+    b = max(1, budget_bytes // (n_rows * k * 4))
+    b = max(n_devices, (b // n_devices) * n_devices)
+    return int(min(b, 4096))
 
 
 # Device memory allowed for not-yet-copied block outputs (null mode emits
@@ -69,21 +70,18 @@ def _flush_cadence(block_size: int, n_perms: int | None,
     return max(1, min(8, budget_bytes // max(per_block, 1)))
 
 
-def _to_host(block: dict) -> dict:
-    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-            for k, v in block.items()}
-
-
-def _materialize_pending(lists: list[list], n_hosted: int) -> int:
+def _materialize_pending(lists: list[list], n_hosted: int, mesh=None) -> int:
     """Copy every not-yet-hosted block dict in each list to host numpy.
 
     ``lists`` are parallel per-block result lists (main, null); entries at
-    index >= n_hosted are device dicts.  Returns the new hosted count.
+    index >= n_hosted are device dicts of this rank's rows.  Returns the new
+    hosted count.  With a mesh each copy is an all_gather of the block's
+    rows, so every rank must reach these calls in the same order.
     """
     n = max((len(lst) for lst in lists), default=0)
     for lst in lists:
         for i in range(min(n_hosted, len(lst)), len(lst)):
-            lst[i] = _to_host(lst[i])
+            lst[i] = {k: host_numpy(v, mesh) for k, v in lst[i].items()}
     return n
 
 
@@ -97,9 +95,9 @@ def draw_imagery_derangements(null_seed: int, block: int, block_size: int,
 
 
 def run_searchlight(
-    X_train: np.ndarray,
-    X_test: np.ndarray,
-    X_imag: np.ndarray,
+    X_train: np.ndarray | None,
+    X_test: np.ndarray | None,
+    X_imag: np.ndarray | None,
     Y_train: np.ndarray,
     Y_test: np.ndarray,
     Y_imag: np.ndarray,
@@ -112,6 +110,7 @@ def run_searchlight(
     null_seed: int = 0,
     imagery_derangements: np.ndarray | None = None,
     block_size: int | None = None,
+    mesh=None,
     device=None,
     cv_solver: str | None = None,
     cv_scorer: str = "xla",
@@ -121,28 +120,55 @@ def run_searchlight(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 64,
     resume: bool = True,
+    x_all_device: torch.Tensor | None = None,
+    n_rows_split: tuple | None = None,
 ):
-    """Run the full searchlight on one device.
+    """Run the full searchlight on one device, or on every rank of ``mesh``.
 
     Returns ``(scores, aux)``: ``scores`` is {metric: [V] float32}; ``aux``
     carries ``elapsed_s``, ``vertices_per_sec`` (timed on the host after the
     device finished), ``block_size``, ``n_blocks``, and optionally
     ``null_scores`` {metric: [V, P]}, per-vertex ``best_alpha`` (CV mode) and
-    ``resumed_at_block``.
+    ``resumed_at_block``.  With a mesh every rank returns the whole result.
 
     X_* are the standardised betas (NaN columns dropped), ``adjacency`` the
     [V, K] neighbour-index matrix, ``shuffles`` the [P, n_test] null
-    permutations.  ``device`` defaults to ``cuda`` and raises without a GPU.
+    permutations.  ``device`` defaults to ``cuda`` and raises without a GPU;
+    with a mesh the device is the rank's (``mesh.device``).
+
+    ``x_all_device`` + ``n_rows_split=(n_train, n_test, n_imag)``: the caller
+    already placed the standardised [n_rows, V'] matrix on the device
+    (``parallel/ingest.py``); X_train/X_test/X_imag may then be None and no
+    host concatenation happens.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    n_ranks = mesh.size if mesh is not None else 1
     layout = TestLayout.from_stim_types(stim_types_test)
-    n_train, n_test = len(X_train), len(X_test)
-    X_all = np.concatenate([X_train, X_test, X_imag]).astype(np.float32)
-    n_rows = X_all.shape[0]
+    if x_all_device is not None:
+        if n_rows_split is None:
+            raise ValueError("x_all_device requires n_rows_split=(n_train, n_test, n_imag)")
+        n_train, n_test, n_imag = n_rows_split
+        n_rows = n_train + n_test + n_imag
+        if x_all_device.shape[0] != n_rows:
+            raise ValueError(f"x_all_device has {x_all_device.shape[0]} rows, "
+                             f"n_rows_split sums to {n_rows}")
+        X_all_d = x_all_device.to(device)
+    else:
+        n_train, n_test = len(X_train), len(X_test)
+        X_all = np.concatenate([X_train, X_test, X_imag]).astype(np.float32)
+        n_rows = X_all.shape[0]
+        X_all_d = torch.as_tensor(X_all, device=device)
+        del X_all
     v_total, k = adjacency.shape
 
     if block_size is None:
-        block_size = _auto_block_size(n_rows, k)
+        block_size = _auto_block_size(n_rows, k, n_ranks)
+    if block_size % n_ranks:
+        raise ValueError(f"block_size {block_size} must be a multiple of the "
+                         f"{n_ranks}-rank world")
+    # this rank's rows of every block
+    rows = (slice(*host_shard_bounds(block_size, mesh.rank, n_ranks)) if mesh is not None
+            else slice(None))
 
     idx_padded, v_orig = pad_to_multiple(np.asarray(adjacency, dtype=np.int32), block_size)
     mask_padded = None
@@ -152,7 +178,6 @@ def run_searchlight(
     def to_dev(a, dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
-    X_all_d = to_dev(X_all, torch.float32)
     Y_train_d = to_dev(Y_train, torch.float32)
     Y_test_d = to_dev(Y_test, torch.float32)
     Y_imag_d = to_dev(Y_imag, torch.float32)
@@ -182,26 +207,33 @@ def run_searchlight(
     n_hosted = 0  # results[:n_hosted] (and null_results[:n_hosted]) are host numpy
 
     # block-granular checkpointing: a killed run loses at most
-    # ``checkpoint_every`` blocks
+    # ``checkpoint_every`` blocks.  Every rank sees the same file: the barrier
+    # orders the check after any earlier run's writes, the second one keeps
+    # rank 0 from removing a stale checkpoint before every rank has looked.
     ckpt_done = -1
-    if checkpoint_path is not None and os.path.isfile(checkpoint_path):
-        if not resume:
-            # overwrite semantics: start from scratch; resuming a stale
-            # checkpoint would also inflate vertices_per_sec
-            os.remove(checkpoint_path)
-        else:
+    if checkpoint_path is not None:
+        barrier(mesh)
+        found = os.path.isfile(checkpoint_path)
+        if found and resume:
             ck = np.load(checkpoint_path, allow_pickle=True)
             ckpt_done = int(ck["done_blocks"])
             results = list(ck["results"])
             null_results = list(ck["null_results"])
             n_hosted = len(results)
             print(f"resuming searchlight from block {ckpt_done + 1}/{n_blocks}")
+        barrier(mesh)
+        if found and not resume and is_writer(mesh):
+            # overwrite semantics: start from scratch; resuming a stale
+            # checkpoint would also inflate vertices_per_sec
+            os.remove(checkpoint_path)
 
     def _save_ckpt(done):
         nonlocal n_hosted
         if checkpoint_path is None:
             return
-        n_hosted = _materialize_pending([results, null_results], n_hosted)
+        n_hosted = _materialize_pending([results, null_results], n_hosted, mesh)
+        if not is_writer(mesh):
+            return
         os.makedirs(os.path.dirname(checkpoint_path) or ".", exist_ok=True)
         tmp = checkpoint_path + ".tmp.npz"
         np.savez(
@@ -219,12 +251,13 @@ def run_searchlight(
         if b <= ckpt_done:
             continue
         sl = slice(b * block_size, (b + 1) * block_size)
-        idx_b = to_dev(idx_padded[sl], torch.int64)
-        mask_b = to_dev(mask_padded[sl], torch.bool) if mask_padded is not None else None
+        idx_b = to_dev(idx_padded[sl][rows], torch.int64)
+        mask_b = (to_dev(mask_padded[sl][rows], torch.bool) if mask_padded is not None
+                  else None)
         if use_null:
             der = (imagery_derangements[sl] if imagery_derangements is not None
                    else draw_imagery_derangements(null_seed, b, block_size, n_perms))
-            der_d = to_dev(der, torch.int64)
+            der_d = to_dev(der[rows], torch.int64)
         if use_cv and use_null:
             main, null = searchlight_block_cv_with_null(
                 X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
@@ -245,13 +278,13 @@ def run_searchlight(
             results.append(searchlight_block(
                 X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha, **common))
         if (b + 1) % flush_every == 0:
-            n_hosted = _materialize_pending([results, null_results], n_hosted)
+            n_hosted = _materialize_pending([results, null_results], n_hosted, mesh)
         if checkpoint_every and (b + 1) % checkpoint_every == 0:
             _save_ckpt(b)
         if progress and (b % 10 == 0 or b == n_blocks - 1):
             print(f"searchlight block {b + 1}/{n_blocks}", flush=True)
 
-    _materialize_pending([results, null_results], n_hosted)
+    _materialize_pending([results, null_results], n_hosted, mesh)
     synchronize(device)
 
     def collect(blocks):
@@ -275,6 +308,6 @@ def run_searchlight(
         aux["null_scores"] = collect(null_results)
     if use_cv:
         aux["best_alpha"] = scores.pop("best_alpha")
-    if checkpoint_path is not None and os.path.isfile(checkpoint_path):
+    if checkpoint_path is not None and is_writer(mesh) and os.path.isfile(checkpoint_path):
         os.remove(checkpoint_path)
     return scores, aux

@@ -38,7 +38,9 @@ def test_every_port_module_is_found():
                      "cli.run_searchlight", "io.surface", "data.synthetic",
                      "decoding.whole_brain", "cli.decode_whole_brain", "utils.threefry",
                      "ops._host_build", "ops.tfce", "ops.stats", "decoding.permutation",
-                     "cli.permutation_testing", "decoding.study", "cli.run_study"):
+                     "cli.permutation_testing", "decoding.study", "cli.run_study",
+                     "parallel.ingest", "parallel.mesh", "parallel.multihost",
+                     "parallel.distributed", "entry"):
         assert f"{port.__name__}.{expected}" in mods
 
 
@@ -163,3 +165,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
             call()
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+    # the multi-GPU slice: meshes, the entry and the dry run
+    from multimodal_decoding_tpu_torch import entry as E
+    from multimodal_decoding_tpu_torch.parallel import mesh as PM
+
+    for call in (PM.vertex_mesh, PM.feature_mesh, PM.init_world, E.entry,
+                 lambda: E.dryrun_multichip(1),
+                 lambda: W.run(W.WholeBrainConfig(betas_dir=str(tmp_path), mesh="auto",
+                                                  out_dir=str(tmp_path / "wb")))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -194,10 +194,26 @@ def test_cli_matches_run_and_refuses_unported_options(both_runs, artifacts):
         np.testing.assert_array_equal(res["p_values"][hemi], got["p_values"][hemi])
         np.testing.assert_array_equal(res["masks"][hemi], got["masks"][hemi])
     assert _files(out_dir) == _files(tcfg.out_dir)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        cli.main(argv + ["--sharded"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TP.run(tcfg, mesh=object())
+    # --sharded and run(mesh=...) split the null over the world's ranks: here a
+    # gloo world of one, which must give the same artifacts and statistics
+    import torch.distributed as dist
+
+    from multimodal_decoding_tpu_torch.parallel.mesh import vertex_mesh
+
+    sharded_dir = str(artifacts["tmp"] / "torch_cli_sharded")
+    mesh_cfg = dataclasses.replace(tcfg, out_dir=str(artifacts["tmp"] / "torch_mesh"))
+    try:
+        by_cli = cli.main(argv[:-4] + ["--out-dir", sharded_dir, "--device", "cpu",
+                                       "--sharded"])
+        by_run = TP.run(mesh_cfg, mesh=vertex_mesh("cpu"))
+    finally:
+        dist.destroy_process_group()
+    for sharded in (by_cli, by_run):
+        for hemi in ("left", "right"):
+            np.testing.assert_array_equal(sharded["p_values"][hemi], got["p_values"][hemi])
+            np.testing.assert_array_equal(sharded["masks"][hemi], got["masks"][hemi])
+        np.testing.assert_array_equal(sharded["null_max_sorted"], got["null_max_sorted"])
+    assert _files(sharded_dir) == _files(mesh_cfg.out_dir) == _files(tcfg.out_dir)
 
 
 @pytest.mark.parametrize("additional_imagery", [False, True])

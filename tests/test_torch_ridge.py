@@ -160,12 +160,22 @@ def test_ridge_cv_dual_reports_stage_timings():
 
 
 def test_a_mesh_raises_naming_the_multi_gpu_item():
+    """A feature mesh shards the kernels (here a gloo world of one: the same
+    kernels as without it); the CV takes the replicated gram and no mesh."""
+    import torch.distributed as dist
+
+    from multimodal_decoding_tpu_torch.parallel.mesh import feature_mesh
+
     X, Y = _problem(9, n=20, f=30)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TR.gram_matrix(X, mesh="auto", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TR.cross_matrix(X, X, mesh="auto", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    try:
+        mesh = feature_mesh(CPU)
+        assert torch.equal(TR.gram_matrix(X, block_cols=7, mesh=mesh),
+                           TR.gram_matrix(X, block_cols=7, device=CPU))
+        assert torch.equal(TR.cross_matrix(X[:4], X, block_cols=7, mesh=mesh),
+                           TR.cross_matrix(X[:4], X, block_cols=7, device=CPU))
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(TypeError, match="mesh"):
         TR.ridge_cv_dual(X @ X.T, Y, ALPHAS, mesh="auto", device=CPU)
 
 

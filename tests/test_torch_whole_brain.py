@@ -170,17 +170,42 @@ def test_cli_runs_on_the_cpu_when_asked(dataset, tmp_path):
     assert res[TM.ACC_CAPTIONS] > 0.8
     assert len(_results_files(str(tmp_path / "cli_wb"))) == 1
     assert cli.main(argv) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        cli.main(argv + ["--multichip"])
+    # --multichip feature-shards the gram over the world: a gloo world of one here
+    import torch.distributed as dist
+
+    multi_argv = argv[:argv.index("--out-dir")] + [
+        "--out-dir", str(tmp_path / "cli_wb_multichip"), "--device", "cpu", "--multichip"]
+    try:
+        (multi,) = cli.main(multi_argv)
+    finally:
+        dist.destroy_process_group()
+    for m in (TM.ACC_CAPTIONS, TM.ACC_IMAGES, TM.ACC_IMAGERY, TM.ACC_IMAGERY_WHOLE_TEST):
+        assert multi[m] == res[m]
+    np.testing.assert_array_equal(multi["predictions"], res["predictions"])
+    assert len(_results_files(str(tmp_path / "cli_wb_multichip"))) == 1
     args = cli.get_args([])
     assert args.device == "cuda"
     assert args.l2_regularization_alphas == list(torch_config.DEFAULT_ALPHAS)
 
 
 def test_solver_defaults_and_refusals(dataset, tmp_path):
+    """The CPU's solver default, and the feature mesh: run(mesh="auto") and a
+    feature-sharded GramCache on a gloo world of one match the unsharded ones."""
+    import torch.distributed as dist
+
+    from multimodal_decoding_tpu_torch.parallel.mesh import feature_mesh
+
     assert TW.default_wb_cv_solver("cpu") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TW.run(_cfg(TW, dataset, str(tmp_path / "m"), mesh="auto"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TW.GramCache(np.zeros((2, 3), np.float32), np.zeros((1, 3), np.float32),
-                     np.zeros((1, 3), np.float32), mesh="auto", device="cpu")
+    rng = np.random.RandomState(3)
+    betas = [rng.randn(n, 37).astype(np.float32) for n in (12, 4, 3)]
+    try:
+        (sharded,) = TW.run(_cfg(TW, dataset, str(tmp_path / "m"), mesh="auto"))
+        cache = TW.GramCache(*betas, mesh=feature_mesh("cpu"))
+    finally:
+        dist.destroy_process_group()
+    (plain,) = TW.run(_cfg(TW, dataset, str(tmp_path / "p")))
+    assert sharded["alpha"] == plain["alpha"]
+    np.testing.assert_array_equal(sharded["predictions"], plain["predictions"])
+    own = TW.GramCache(*betas, device="cpu")
+    for name in ("K", "K_test", "K_imag"):
+        assert torch.equal(getattr(cache, name), getattr(own, name))
