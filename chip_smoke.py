@@ -76,9 +76,11 @@ Phases, each printing one JSON line with its seconds:
              K=375 neighbours, D=1024, 100 nulls each, the 6-alpha CV): every
              artifact at the JAX package's paths, significant vertices, a
              rerun that skips every stage, the exact chol_inv_panel launch
-             count of the Schur recursion at K, no streamed-count launch, and
+             count of the Schur recursion at K, no streamed-count launch,
              the permutation CLI on the same searchlight outputs giving the
-             same null_max and p-values.
+             same null_max and p-values, and the export CLI writing every
+             subject, average and min-composite GIfTI map, each read back
+             equal to the map it came from.
 11. ingest - streamed betas ingestion at production width, nothing cut: one
              fsaverage7 hemisphere (8,192 train + 140 test + 3 imagery rows x
              163,842 vertices, 1% NaN columns, a planted signal from a seed)
@@ -100,12 +102,27 @@ Phases, each printing one JSON line with its seconds:
              entry() and dryrun_multichip(1); wall seconds of each sharded
              run beside its unsharded one.  It needs phases wb_cli and study
              before it in the same call.
+13. analyses - the analyses on the card: the Monte-Carlo t calibration at
+             the reference's production shape (10,000 permutations x 6
+             subjects x (73 latents + 3 predictions) x 1024 = 4.67e9
+             normals), its draws held bit-equal to the numpy draws on one
+             chunk, its cutoffs and minimum accuracies within 1e-4 relative
+             of the JAX package's values for the same seed (recorded below);
+             the two-modality simulation's ridge classifier at full width
+             (2 conditions x 3 decoders x 2 seeds) against the same fits on
+             the CPU (labels >= 0.999 equal), host data and card seconds
+             apart and run_all_conditions(n_seeds=10) projected; CSLS on
+             [140, 1024] x [140, 1024], knn 100, against the CPU (1e-5);
+             no hand-written kernel runs on this path.
 
 On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
 main-path block step down by kernel (torch.profiler), and ``--phases
 build,wb_profile`` does the same for the whole-brain stages: the streamed
 gram over 8 column blocks (device busy share: is the host copy in the way?),
-one fast and one strict CV at N=8192.
+one fast and one strict CV at N=8192.  ``--phases flips`` draws the
+analyses' production null once more, prints its count digest beside the JAX
+package's and counts the comparisons d_ii < d_ij that flip between float32
+and float64 on the card.
 
 Then it prints the card's name and power limit (nvidia-smi), one
 {"kernels": [...]} line, and as its last line
@@ -126,8 +143,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli", "stats",
-          "study", "ingest", "dist")
-EXTRA_PHASES = ("profile", "wb_profile")  # run on request: --phases build,profile
+          "study", "ingest", "dist", "analyses")
+EXTRA_PHASES = ("profile", "wb_profile", "flips")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -179,6 +196,30 @@ IN_V, IN_NAN_SHARE, IN_CHUNK = 163_842, 0.01, 512
 # a vertex-sharded runner may pick other cuBLAS kernels at batch B / W
 # (tests/test_multiprocess_distributed.py's bar)
 DIST_RTOL, DIST_ATOL = 2e-5, 2e-6
+# the analyses: the Monte-Carlo t calibration at the reference's production
+# shape (10,000 permutations of 6 subjects, 73 latents, 3 predictions, 1024
+# dimensions; 4.67e9 normals), 216 = 3 x 73 - 3 pairwise comparisons a subject
+AN_PERMS, AN_S, AN_L, AN_P, AN_D = 10_000, 6, 73, 3, 1024
+AN_DENOM = AN_P * AN_L - min(AN_P, AN_L)
+AN_P_VALS = (0.05, 1e-2, 1e-3, 1e-4)
+# The JAX package's values for the same call, computed on the CPU with
+#   JAX_PLATFORMS=cpu python -c "from multimodal_decoding_tpu.analysis.calibration
+#   import t_threshold_monte_carlo as f; print(f(seed=0))"
+AN_JAX_CUTOFFS = {0.05: (2.0205559730529785, 0.5378086566925049),
+                  0.01: (3.6013646125793457, 0.5671296119689941),
+                  0.001: (6.159075736999512, 0.5794752836227417),
+                  0.0001: (15.833959579467773, float("nan"))}
+# and the digest of its null's integer counts: with accs [10000, 6] the
+# per-permutation pairwise_accuracy of that function's one_perm (jit, vmap,
+# chunks of 200) and c = round(accs * 216), (c.sum(), (c * (arange(60000) +
+# 1).reshape(10000, 6)).sum()); equal digests mean no comparison flipped
+AN_JAX_COUNT_DIGEST = (6485936, 194579890218)
+AN_CUTOFF_RTOL = 1e-4
+# the simulation: 2 of the 12 conditions at full width (70 classes, 100 / 1000
+# samples a class, 200 voxels), 2 seeds, labels held to the CPU's fits
+AN_SIM_CONDITIONS, AN_SIM_SEEDS = ("gauss_same_stddev", "just_noise"), 2
+AN_LABEL_AGREEMENT_MIN = 0.999
+AN_KNN, AN_CSLS_TOL = 100, 1e-5  # CSLS on [140, 1024] x [140, 1024]
 STREAMED = [  # (kernel, TPU kernel it replaces)
     ("streamed_pairwise_acc", "multimodal_decoding_tpu/ops/pallas_metrics.py:74"),
     ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
@@ -1247,10 +1288,13 @@ def quiet(fn, *args):
 
 
 class Tally:
-    """Counts the calls of ``module.name``, and sums their seconds, while entered."""
+    """Counts the calls of ``module.name`` and sums their seconds while
+    entered; ``after(result, *args, **kwargs)`` runs after each call, outside
+    its seconds."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls, self.seconds = module, name, 0, 0.0
+    def __init__(self, module, name: str, after=None):
+        self.module, self.name, self.after = module, name, after
+        self.calls, self.seconds = 0, 0.0
 
     def __enter__(self):
         self._fn = fn = getattr(self.module, self.name)
@@ -1258,10 +1302,13 @@ class Tally:
         def wrapper(*args, **kwargs):
             t0 = time.time()
             try:
-                return fn(*args, **kwargs)
+                result = fn(*args, **kwargs)
             finally:
                 self.calls += 1
                 self.seconds += time.time() - t0
+            if self.after is not None:
+                self.after(result, *args, **kwargs)
+            return result
 
         setattr(self.module, self.name, wrapper)
         return self
@@ -1271,6 +1318,37 @@ class Tally:
         return False
 
 
+def export_expected(per_subject: dict, export_cli) -> dict:
+    """{relative .gii path: float32 map} that ``export_cli`` writes for these
+    scores: each subject's maps, the subject averages and their min-composites."""
+    import warnings
+
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch.config import FS_HEMI_NAMES
+
+    subjects = list(per_subject)
+    metrics = [m for m in export_cli.T_VAL_METRICS
+               if all(m in per_subject[s]["left"] for s in subjects)]
+    out = {}
+    for hemi, fs in FS_HEMI_NAMES.items():
+        averaged = {}
+        for m in metrics:
+            for s in subjects:
+                out[os.path.join(s, f"{m}_{fs}.gii")] = np.asarray(per_subject[s][hemi][m],
+                                                                   np.float32)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN vertices
+                averaged[m] = np.nanmean([per_subject[s][hemi][m] for s in subjects], axis=0)
+            out[os.path.join("avg", f"{m}_{fs}.gii")] = averaged[m].astype(np.float32)
+        for name, members in export_cli.ACC_COMPOSITES.items():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                comp = np.nanmin(np.stack([averaged[m] for m in members]), axis=0)
+            out[os.path.join("avg", f"{name}_{fs}.gii")] = comp.astype(np.float32)
+    return out
+
+
 def phase_study() -> dict:
     """The port's study CLI end to end on the card, then the permutation CLI."""
     import dataclasses
@@ -1278,12 +1356,14 @@ def phase_study() -> dict:
     import numpy as np
 
     from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch.cli import export_results_maps as export_cli
     from multimodal_decoding_tpu_torch.cli import permutation_testing as perm_cli
     from multimodal_decoding_tpu_torch.cli import run_study as cli
     from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
     from multimodal_decoding_tpu_torch.data.synthetic import make_synthetic_dataset
     from multimodal_decoding_tpu_torch.decoding import permutation as PT
     from multimodal_decoding_tpu_torch.decoding import study as study_module
+    from multimodal_decoding_tpu_torch.io.gifti import read_gifti
     from multimodal_decoding_tpu_torch.decoding.searchlight import (
         get_results_file_path,
         searchlight_mode_str,
@@ -1380,6 +1460,19 @@ def phase_study() -> dict:
         return all(np.array_equal(other["p_values"][h], stats["p_values"][h], equal_nan=True)
                    for h in hemis)
 
+    # the export CLI on the study's searchlight outputs: every map reads back
+    maps_out = os.path.join(root, "maps")
+    t1 = time.time()
+    quiet(export_cli.main, ["--subjects", *subjects, "--model", "imagebind", "--n-neighbors",
+                            str(SD_K), "--l2-regularization-alpha", "cv",
+                            "--searchlight-out-dir", sl_out, "--out-dir", maps_out])
+    export_s = time.time() - t1
+    exported = export_expected(PT.load_per_subject_scores(pcfg), export_cli)
+    written = sorted(os.path.relpath(os.path.join(d, f), maps_out)
+                     for d, _, fs in os.walk(maps_out) for f in fs)
+    unequal_maps = [rel for rel in written if rel not in exported or not np.array_equal(
+        read_gifti(os.path.join(maps_out, rel)).data, exported[rel], equal_nan=True)]
+
     n_sig = {h: int(stats["masks"][h].sum()) for h in hemis}
     first = artifacts.load_pickle(results[0])
     out = {"subjects": SD_SUBJECTS, "vertices_per_hemi": mesh.n_vertices,
@@ -1396,7 +1489,9 @@ def phase_study() -> dict:
            "significance_cutoff": float(stats["significance_cutoff"]),
            "launches": launches, "expected_launches": expected_launches,
            "base_blocks": bases, "panel_shapes": calls.shapes,
-           "rerun_launches": rerun_launches, "missing_artifacts": missing}
+           "rerun_launches": rerun_launches, "missing_artifacts": missing,
+           "export": {"seconds": export_s, "maps": len(written), "expected": len(exported),
+                      "unequal": unequal_maps}}
     fails = []
     if missing or sorted(stats["searchlight_outputs"]) != sorted(results):
         fails.append(f"artifacts: {len(missing)} missing, searchlight outputs "
@@ -1414,6 +1509,9 @@ def phase_study() -> dict:
                      f"loads, {nulls.calls} null loads")
     if not np.array_equal(cli_null_max, null_max) or not same_p(by_cli):
         fails.append("the permutation CLI gave another null_max or other p-values")
+    if unequal_maps or len(written) != len(exported):
+        fails.append(f"export: {len(written)} maps of {len(exported)}, "
+                     f"{len(unequal_maps)} do not read back as their maps")
     if fails:
         raise AssertionError(f"study: {'; '.join(fails)}: {out}")
     WS.runs["study"] = {"info": info, "common": common, "sl_out": sl_out, "root": root,
@@ -1784,6 +1882,175 @@ def phase_dist() -> dict:
     return out
 
 
+def phase_flips() -> dict:
+    """On request: the analyses' production null drawn once more through
+    ``null_draws``, its count digest beside the JAX package's, and its
+    comparisons ``d_ii < d_ij`` decided once in float32 (the port's path) and
+    once in float64 from the same normals: how many differ."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.analysis import calibration as AC
+    from multimodal_decoding_tpu_torch.ops.metrics import cosine_distances
+    from multimodal_decoding_tpu_torch.utils import threefry as T
+
+    accs, _, _ = AC.null_draws(AN_PERMS, AN_S, AN_L, AN_P, AN_D, seed=0, device=DEVICE)
+    digest = count_digest(accs)
+    keys = T.split(T.prng_key(0), AN_PERMS)
+    flips, comparisons, max_abs_d = 0, 0, 0.0
+    for start in range(0, AN_PERMS, AC.CHUNK):
+        ks = T.split_torch(keys[start:start + AC.CHUNK], 2, DEVICE)
+        lat = T.normal_torch(ks[:, 0], (AN_S, AN_L, AN_D))
+        pred = T.normal_torch(ks[:, 1], (AN_S, AN_P, AN_D))
+        wins = []
+        for dtype in (torch.float32, torch.float64):
+            d = cosine_distances(pred.to(dtype), lat.to(dtype))  # [C, S, P, L]
+            wins.append(torch.diagonal(d, dim1=-2, dim2=-1)[..., :, None] < d)
+            if dtype == torch.float64:
+                max_abs_d = max(max_abs_d, float((d - d32).abs().max()))
+            d32 = d
+        flips += int((wins[0] != wins[1]).sum())
+        comparisons += wins[0].numel() - wins[0].shape[0] * AN_S * AN_P
+        del lat, pred, wins, d, d32
+    return {"count_digest": list(digest), "jax_count_digest": list(AN_JAX_COUNT_DIGEST),
+            "count_sum_delta": digest[0] - AN_JAX_COUNT_DIGEST[0],
+            "float32_vs_float64_flips": flips, "comparisons": comparisons,
+            "max_abs_distance_delta": max_abs_d}
+
+
+def count_digest(accs) -> tuple:
+    """(sum, index-weighted sum) of the null's integer counts ``acc * 216``."""
+    import numpy as np
+
+    counts = np.round(np.asarray(accs, np.float64) * AN_DENOM).astype(np.int64)
+    idx = np.arange(1, counts.size + 1, dtype=np.int64).reshape(counts.shape)
+    return int(counts.sum()), int((counts * idx).sum())
+
+
+def phase_analyses() -> dict:
+    """The analyses on the card: the Monte-Carlo t calibration at the
+    reference's production shape, the two-modality simulation's ridge
+    classifier at full width, and CSLS."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.analysis import calibration as AC
+    from multimodal_decoding_tpu_torch.analysis import simulation as AS
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops.metrics import get_distance_matrix_csls
+    from multimodal_decoding_tpu_torch.utils import threefry as T
+
+    out, fails = {}, []
+    H.reset_launches()
+    HM.reset_launches()
+
+    # (1) the card's draws against the numpy draws, bit for bit, on one chunk
+    keys = T.split(T.prng_key(0), 2)
+    ks = T.split_torch(keys, 2, DEVICE)
+    drawn = {"latents": T.normal_torch(ks[:, 0], (AN_S, AN_L, AN_D)).cpu().numpy(),
+             "predictions": T.normal_torch(ks[:, 1], (AN_S, AN_P, AN_D)).cpu().numpy()}
+    unequal = 0
+    for i, k in enumerate(keys):
+        sub = T.split(k, 2)
+        unequal += int((drawn["latents"][i].view(np.int32)
+                        != T.normal(sub[0], (AN_S, AN_L, AN_D)).view(np.int32)).sum())
+        unequal += int((drawn["predictions"][i].view(np.int32)
+                        != T.normal(sub[1], (AN_S, AN_P, AN_D)).view(np.int32)).sum())
+    out["draws_checked"] = sum(v.size for v in drawn.values())
+    out["draws_unequal"] = unequal
+    if unequal:
+        fails.append(f"{unequal} card normals differ from the numpy draws")
+
+    # (2) the production calibration on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with Tally(AC, "null_draws") as null:
+        cutoffs = AC.t_threshold_monte_carlo(
+            n_perms=AN_PERMS, n_subjects=AN_S, n_latents=AN_L, n_preds=AN_P, dim=AN_D,
+            p_vals=AN_P_VALS, seed=0, device=DEVICE)
+    calib_s = time.time() - t0
+    cal = {"seconds": calib_s, "null_draws_s": null.seconds, "chunk": AC.CHUNK,
+           "normals": AN_PERMS * AN_S * (AN_L + AN_P) * AN_D,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "cutoffs": {str(p): list(v) for p, v in cutoffs.items()},
+           "jax_cutoffs": {str(p): list(v) for p, v in AN_JAX_CUTOFFS.items()}}
+    cal["normals_per_s"] = cal["normals"] / null.seconds
+    for p, (ref_cut, ref_min) in AN_JAX_CUTOFFS.items():
+        cut, min_acc = cutoffs[p]
+        if abs(cut - ref_cut) > AN_CUTOFF_RTOL * abs(ref_cut):
+            fails.append(f"cutoff at p={p}: {cut} against the JAX package's {ref_cut}")
+        if math.isnan(ref_min) != math.isnan(min_acc) or (
+                not math.isnan(ref_min) and abs(min_acc - ref_min) > AN_CUTOFF_RTOL * ref_min):
+            fails.append(f"min accuracy at p={p}: {min_acc} against {ref_min}")
+    out["calibration"] = cal
+
+    # (3) the simulation's classifier at full width, card against the CPU
+    compared = {"labels": 0, "agree": 0, "cpu_fit_s": 0.0}
+    fit_fn = AS.ridge_classifier_fit_predict
+
+    def against_cpu(preds, train_x, train_y, test_xs, alpha, n_classes, device):
+        t1 = time.time()
+        ref = fit_fn(train_x, train_y, test_xs, alpha, n_classes, device="cpu")
+        compared["cpu_fit_s"] += time.time() - t1
+        for g, r in zip(preds, ref):
+            compared["labels"] += r.size
+            compared["agree"] += int((g == r).sum())
+
+    rows = []
+    with Tally(AS, "generate_condition_data") as gen, \
+            Tally(AS, "ridge_classifier_fit_predict", against_cpu) as fit:
+        for condition in AN_SIM_CONDITIONS:
+            rows += AS.train_and_eval(condition, n_seeds=AN_SIM_SEEDS, device=DEVICE)
+    n_fits = fit.calls
+    per_fit = (gen.seconds + fit.seconds) / n_fits
+    full = len(AS.SECOND_MODALITY_CONDITIONS) * 3 * 10  # run_all_conditions(n_seeds=10)
+    mean_acc = {f"{c}/{d}/{m}": float(np.mean([r["acc"] for r in rows if
+                                               (r["condition"], r["decoder_type"],
+                                                r["modality"]) == (c, d, m)]))
+                for c in AN_SIM_CONDITIONS
+                for d in ("modality_agnostic", "modality_specific_mod1",
+                          "modality_specific_mod2") for m in ("mod1", "mod2", "avg")}
+    agreement = compared["agree"] / compared["labels"]
+    out["simulation"] = {
+        "conditions": list(AN_SIM_CONDITIONS), "n_seeds": AN_SIM_SEEDS, "fits": n_fits,
+        "classes": AS.N_CLASSES, "voxels": AS.N_VOXELS_FMRI,
+        "host_data_s": gen.seconds, "device_fit_s": fit.seconds,
+        "cpu_fit_s": compared["cpu_fit_s"], "label_agreement": agreement,
+        "labels_compared": compared["labels"],
+        "run_all_conditions_fits": full, "run_all_conditions_projected_s": per_fit * full,
+        "run_all_conditions_projected_host_s": gen.seconds / n_fits * full,
+        "mean_acc": mean_acc}
+    if agreement < AN_LABEL_AGREEMENT_MIN:
+        fails.append(f"simulation labels agree on {agreement} of the test samples")
+    if not (mean_acc["gauss_same_stddev/modality_agnostic/avg"] > 0.4
+            and mean_acc["just_noise/modality_specific_mod2/mod2"] < 0.05):
+        fails.append(f"simulation accuracies off: {mean_acc}")
+
+    # (4) CSLS on the card against the CPU
+    rng = np.random.RandomState(0)
+    preds = rng.randn(N_TEST, D).astype(np.float32)
+    lats = rng.randn(N_TEST, D).astype(np.float32)
+    got = get_distance_matrix_csls(preds, lats, knn=AN_KNN, device=DEVICE)
+    ref = get_distance_matrix_csls(preds, lats, knn=AN_KNN, device="cpu")
+    err = float((got.cpu() - ref).abs().max())
+    p_card = torch.as_tensor(preds, device=DEVICE)
+    l_card = torch.as_tensor(lats, device=DEVICE)
+    out["csls"] = {"shape": [N_TEST, D], "knn": AN_KNN, "max_abs_err": err,
+                   "ms": cuda_time_ms(lambda: get_distance_matrix_csls(p_card, l_card,
+                                                                       knn=AN_KNN))}
+    if not err <= AN_CSLS_TOL:
+        fails.append(f"CSLS card vs CPU: max error {err}")
+
+    out["hand_kernel_launches"] = {"chol_inv_panel": H.launches, **HM.launches}
+    if H.launches or any(HM.launches.values()):
+        fails.append(f"a hand kernel ran on the analyses' path: {out['hand_kernel_launches']}")
+    if fails:
+        raise AssertionError(f"analyses: {'; '.join(fails)}: {out}")
+    return out
+
+
 def kernels_line(results: dict) -> dict:
     """The {"kernels": [...]} summary: each kernel's launches on its main path
     (the CLI for chol_inv_panel, its scorer's run for the streamed ones) and
@@ -1863,6 +2130,7 @@ def main() -> int:
                    "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
                    "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
                    "study": phase_study, "ingest": phase_ingest, "dist": phase_dist,
+                   "analyses": phase_analyses, "flips": phase_flips,
                    "wb_profile": phase_wb_profile,
                    "profile": lambda: phase_profile(args.scorer)}[name]()
             results[name] = out

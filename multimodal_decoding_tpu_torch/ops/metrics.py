@@ -4,8 +4,8 @@ Port of ``multimodal_decoding_tpu/ops/metrics.py`` up to its score family:
 sklearn-style ``standardize``/``fit_standardizer``, cosine and euclidean
 distances, the pairwise-accuracy forms (batched over leading axes) and the
 per-modality, cross-modal and imagery score family of the whole-brain
-decoder.  RSA and CSLS (the analyses' metrics) are not ported yet (ROADMAP
-A12).  The metric-name constants are the reference's public API (its
+decoder, the host RSA helpers (copies) and the CSLS distance on the device.
+The metric-name constants are the reference's public API (its
 eval.py:9-79) and are kept verbatim, so result pickles keyed by them are
 interchangeable with the JAX package's.
 """
@@ -313,3 +313,82 @@ def calc_all_pairwise_accuracy_scores(
             )
         )
     return results
+
+
+# ---------------------------------------------------------------------------
+# RSA (reference: eval.py:184-223).  Host-side helper; small inputs, not hot.
+# ---------------------------------------------------------------------------
+
+
+def _rankdata(x: np.ndarray) -> np.ndarray:
+    """Average-tie ranks per row (scipy.stats.rankdata equivalent, axis=-1)."""
+    from scipy.stats import rankdata
+
+    return rankdata(x, axis=-1)
+
+
+def create_dissimilarity_matrix(sample_embeds: np.ndarray, matrix_metric: str = "spearmanr"):
+    """Upper triangle of 1 - row-correlation matrix (eval.py:184-193)."""
+    sample_embeds = np.asarray(sample_embeds)
+    if matrix_metric == "spearmanr":
+        ranks = _rankdata(sample_embeds)
+        sim_mat = np.corrcoef(ranks, rowvar=True)
+    elif matrix_metric == "pearsonr":
+        sim_mat = np.corrcoef(sample_embeds, rowvar=True)
+    else:
+        raise RuntimeError("Unknown metric: " + matrix_metric)
+    dissim = 1.0 - sim_mat
+    iu = np.triu_indices(sample_embeds.shape[0], 1)
+    return dissim[iu].reshape(-1)
+
+
+def rsa_from_matrices(matrix_1, matrix_2, metric: str = "spearmanr") -> float:
+    if metric == "spearmanr":
+        r1 = _rankdata(np.asarray(matrix_1)[None, :])[0]
+        r2 = _rankdata(np.asarray(matrix_2)[None, :])[0]
+        return float(np.corrcoef(r1, r2)[0, 1])
+    elif metric == "pearsonr":
+        return float(np.corrcoef(matrix_1, matrix_2)[0, 1])
+    raise RuntimeError("Unknown metric: " + metric)
+
+
+def calc_rsa(latent_1, latent_2, metric="spearmanr", matrix_metric="spearmanr") -> float:
+    m1 = create_dissimilarity_matrix(latent_1, matrix_metric)
+    m2 = create_dissimilarity_matrix(latent_2, matrix_metric)
+    return rsa_from_matrices(m1, m2, metric=metric)
+
+
+def calc_rsa_images(latent_1, latent_2, stimulus_types, metric="spearmanr", matrix_metric="spearmanr"):
+    stimulus_types = np.asarray(stimulus_types)
+    assert len(latent_1) == len(latent_2) == len(stimulus_types)
+    return calc_rsa(
+        latent_1[stimulus_types == IMAGE], latent_2[stimulus_types == IMAGE], metric, matrix_metric
+    )
+
+
+def calc_rsa_captions(latent_1, latent_2, stimulus_types, metric="spearmanr", matrix_metric="spearmanr"):
+    stimulus_types = np.asarray(stimulus_types)
+    assert len(latent_1) == len(latent_2) == len(stimulus_types)
+    return calc_rsa(
+        latent_1[stimulus_types == CAPTION], latent_2[stimulus_types == CAPTION], metric, matrix_metric
+    )
+
+
+def get_distance_matrix_csls(predictions, latents, knn: int = 100, device=None):
+    """CSLS-adjusted cosine distance matrix (batched over leading axes).
+
+    The standard CSLS formulation, as the JAX package's (not the reference's
+    eval.py:82-100, whose ``distances[best_distances_idx]`` gathers whole
+    rows): ``2*d(p,l) - r(p) - r(l)`` with r = mean distance to the ``knn``
+    nearest neighbours in the other set (all of them when ``knn`` is larger).
+    Tensors stay on their device; arrays go to ``device`` (``None``: cuda).
+    """
+    d = cosine_distances(as_float32(predictions, device), as_float32(latents, device))
+
+    def knn_mean(dist, k):
+        # mean of the k smallest distances along the last axis
+        return torch.topk(dist, k, dim=-1, largest=False).values.mean(dim=-1)
+
+    r_preds = knn_mean(d, min(knn, d.shape[-1]))  # [..., n_preds]
+    r_lats = knn_mean(d.mT, min(knn, d.shape[-2]))  # [..., n_lat]
+    return 2.0 * d - r_preds[..., :, None] - r_lats[..., None, :]

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU fallback."""
 
 import ast
+import importlib.util
 import os
 import pkgutil
 import subprocess
@@ -40,7 +41,12 @@ def test_every_port_module_is_found():
                      "ops._host_build", "ops.tfce", "ops.stats", "decoding.permutation",
                      "cli.permutation_testing", "decoding.study", "cli.run_study",
                      "parallel.ingest", "parallel.mesh", "parallel.multihost",
-                     "parallel.distributed", "entry"):
+                     "parallel.distributed", "entry", "analysis.calibration",
+                     "analysis.simulation", "analysis.noise_ceilings", "io.annot", "io.atlas",
+                     "decoding.cluster_postproc", "viz.maps", "viz.reporting", "viz.freeview",
+                     "cli.export_results_maps", "cli.make_roi_mask", "preprocessing.events",
+                     "preprocessing.spm_design", "preprocessing.masks",
+                     "preprocessing.beta_symlinks", "preprocessing.surface_transform"):
         assert f"{port.__name__}.{expected}" in mods
 
 
@@ -77,6 +83,28 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
                          timeout=300, cwd=ROOT, env=env)
     assert out.returncode == 0, out.stderr
     assert "isolated ok" in out.stdout
+
+
+def test_port_imports_without_the_figure_stack():
+    """The card machine has no matplotlib, pandas, seaborn or PIL: the package
+    and chip_smoke.py import with them made unimportable."""
+    blocked = ("matplotlib", "pandas", "seaborn", "PIL")
+    code = "\n".join([
+        "import importlib, importlib.util, sys",
+        *[f"sys.modules[{name!r}] = None" for name in blocked + FORBIDDEN],
+        f"sys.path.insert(0, {ROOT!r})",
+        f"for name in {_port_modules()!r}:",
+        "    importlib.import_module(name)",
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(ROOT, 'chip_smoke.py')!r})",
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        f"assert not any(m.split('.')[0] in {blocked!r} for m, v in sys.modules.items() if v is not None)",
+        "print('figure-free ok')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "figure-free ok" in out.stdout
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
@@ -136,6 +164,31 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
                  lambda: M.pairwise_accuracy(y, y)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+    # the analyses: calibration, the simulation's classifier, CSLS, rescoring
+    from multimodal_decoding_tpu_torch.analysis import calibration as AC
+    from multimodal_decoding_tpu_torch.analysis import simulation as AS
+    from multimodal_decoding_tpu_torch.viz import reporting as VR
+
+    labels = np.arange(10) % 2
+    for call in (lambda: AC.t_threshold_monte_carlo(n_perms=4, n_latents=4, dim=8),
+                 lambda: AS.ridge_classifier_fit_predict(x, labels, [x], 1.0, 2),
+                 lambda: AS.train_and_eval("just_noise", n_seeds=1, n_classes=2,
+                                           n_train_per_class=2, n_test_per_class=2,
+                                           n_voxels=4),
+                 lambda: M.get_distance_matrix_csls(y, y, knn=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    import pickle
+
+    res = dict(model="clip", predictions=y[:4], latents=y[:4], pairwise_acc_images=0.5,
+               stimulus_types=np.array(["caption", "caption", "image", "image"]))
+    os.makedirs(tmp_path / "res")
+    with open(tmp_path / "res" / "results.p", "wb") as f:
+        pickle.dump(res, f)
+    if importlib.util.find_spec("pandas") is not None:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            VR.load_results_frame(str(tmp_path / "res"), recompute_metrics=True)
     assert R.ridge_cv_dual(K, y, [1.0, 10.0], n_splits=2, device="cpu")[2].device.type == "cpu"
 
     # group statistics and the study: their configs, runs, CLIs and the t-maps

@@ -235,3 +235,54 @@ def test_eager_jax_scores_round_counts_by_true_division():
     for name in eager:
         e, g = np.float32(eager[name]), got[name].numpy()
         assert abs(g - e) <= np.spacing(e), name
+
+
+# ---------------------------------------------------------------------------
+# RSA (host copies) and CSLS (torch)
+# ---------------------------------------------------------------------------
+
+CSLS_TOL = 1e-6
+
+
+@pytest.mark.parametrize("metric,matrix_metric", [("spearmanr", "spearmanr"),
+                                                  ("pearsonr", "pearsonr"),
+                                                  ("spearmanr", "pearsonr")])
+def test_rsa_helpers_equal_jax(metric, matrix_metric):
+    rng = np.random.RandomState(7)
+    a, b = rng.randn(12, 9), rng.randn(12, 9)
+    b[:, 0] = a[:, 0]  # some shared structure
+    a[3] = a[4]  # tied ranks
+    np.testing.assert_array_equal(TM.create_dissimilarity_matrix(a, matrix_metric),
+                                  JM.create_dissimilarity_matrix(a, matrix_metric))
+    assert TM.calc_rsa(a, b, metric, matrix_metric) == JM.calc_rsa(a, b, metric, matrix_metric)
+    m1, m2 = rng.rand(30), rng.rand(30)
+    assert TM.rsa_from_matrices(m1, m2, metric) == JM.rsa_from_matrices(m1, m2, metric)
+    types = np.array(["caption", "image"] * 6)
+    assert TM.calc_rsa_images(a, b, types, metric, matrix_metric) == \
+        JM.calc_rsa_images(a, b, types, metric, matrix_metric)
+    assert TM.calc_rsa_captions(a, b, types, metric, matrix_metric) == \
+        JM.calc_rsa_captions(a, b, types, metric, matrix_metric)
+
+
+def test_rsa_unknown_metric_raises():
+    with pytest.raises(RuntimeError, match="Unknown metric"):
+        TM.create_dissimilarity_matrix(np.eye(3), "kendall")
+    with pytest.raises(RuntimeError, match="Unknown metric"):
+        TM.rsa_from_matrices(np.ones(3), np.ones(3), "kendall")
+
+
+@pytest.mark.parametrize("shapes,knn", [(((14, 32), (14, 32)), 5),
+                                        (((14, 32), (9, 32)), 100),  # knn > both sets
+                                        (((3, 10, 16), (3, 12, 16)), 4),
+                                        (((2, 3, 10, 16), (12, 16)), 7)],
+                         ids=["square", "knn_larger", "batched", "broadcast_latents"])
+def test_csls_matches_jax(shapes, knn):
+    rng = np.random.RandomState(11)
+    p = rng.randn(*shapes[0]).astype(np.float32)
+    l = rng.randn(*shapes[1]).astype(np.float32)
+    ref = np.asarray(jax.jit(JM.get_distance_matrix_csls, static_argnums=2)(p, l, knn))
+    got = TM.get_distance_matrix_csls(p, l, knn, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=CSLS_TOL)
+    # tensors stay on their device
+    assert TM.get_distance_matrix_csls(_t(p), _t(l), knn).device.type == "cpu"
