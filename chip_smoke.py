@@ -114,6 +114,18 @@ Phases, each printing one JSON line with its seconds:
              apart and run_all_conditions(n_seeds=10) projected; CSLS on
              [140, 1024] x [140, 1024], knn 100, against the CPU (1e-5);
              no hand-written kernel runs on this path.
+14. extract - feature extraction: the random-imagebind control built on the
+             card from seed 0 through the extractor registry at
+             ImageBind-Huge's full width (~0.98e9 weights, drawn as the JAX
+             package draws them; 1.05e6 sampled weights bit-equal to numpy
+             threefry), its forward at batch 10 (the registry's) and 128 on
+             seeded pixels and token ids (ms a batch, stimuli/s, peak memory,
+             the float32 FLOP bound), batch 2 against the same modules in
+             float64 (vision max |d| <= 1e-4, text <= 1e-4 x the logit
+             scale), the extraction harness over 3 batches of 10 read back by
+             the data layer, the Gabor bank on 100 images of 256 x 256
+             (against float64 and scipy.ndimage) and motion energy on 100 of
+             96 x 96 (against float64); no hand-written kernel runs on it.
 
 On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
 main-path block step down by kernel (torch.profiler), and ``--phases
@@ -143,7 +155,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli", "stats",
-          "study", "ingest", "dist", "analyses")
+          "study", "ingest", "dist", "analyses", "extract")
 EXTRA_PHASES = ("profile", "wb_profile", "flips")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
@@ -220,6 +232,18 @@ AN_CUTOFF_RTOL = 1e-4
 AN_SIM_CONDITIONS, AN_SIM_SEEDS = ("gauss_same_stddev", "just_noise"), 2
 AN_LABEL_AGREEMENT_MIN = 0.999
 AN_KNN, AN_CSLS_TOL = 100, 1e-5  # CSLS on [140, 1024] x [140, 1024]
+# feature extraction: ImageBind-Huge at full width, random-init control from
+# seed 0; forwards at the registry's batch and at 128; 1e6 sampled weights
+# held to numpy threefry; float64 on the card at batch 2; the harness over 3
+# batches of 10; the Gabor bank (160 kernels of 43 x 43) on the CLI's 100
+# images of 256 x 256; motion energy (1,361 channels) on 100 of 96 x 96
+EX_SEED, EX_BATCHES, EX_F64_BATCH, EX_HARNESS_BATCHES = 0, (10, 128), 2, 3
+EX_SAMPLE = 350_000  # sampled weights of each of patch_w, token_embed, block 31's fc1_w
+EX_EMBED_TOL = 1e-4  # max |float32 - float64| of a unit vector (x the logit scale for text)
+EX_BANK_N, EX_GABOR_PX, EX_MOTEN_PX, EX_SCIPY = 100, 256, 96, (2, 6)
+# float32 against float64 sums: within 1e-5 of the float32 error scale (the
+# sum of the terms' magnitudes; see gabor_error_scale and moten_error_scale)
+EX_BANK_TOL = 1e-5
 STREAMED = [  # (kernel, TPU kernel it replaces)
     ("streamed_pairwise_acc", "multimodal_decoding_tpu/ops/pallas_metrics.py:74"),
     ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
@@ -2051,6 +2075,266 @@ def phase_analyses() -> dict:
     return out
 
 
+def imagebind_flops(cfg) -> tuple:
+    """(vision, text) FLOPs of one stimulus: 24 d^2 a token and layer (q, k,
+    v, out: 8 d^2; the 4x MLP: 16 d^2) plus 4 L^2 d a layer of attention
+    (q k^T and the weighted sum), the patch stem and the heads."""
+    def tower(tokens, d, layers):
+        return layers * (24 * tokens * d * d + 4 * tokens * tokens * d)
+
+    vision = (tower(cfg.n_patches + 1, cfg.vision_embed_dim, cfg.vision_layers)
+              + 2 * cfg.n_patches * cfg.patch_dim * cfg.vision_embed_dim
+              + 2 * cfg.vision_embed_dim * cfg.out_embed_dim)
+    text = (tower(cfg.context_length, cfg.text_embed_dim, cfg.text_layers)
+            + 2 * cfg.text_embed_dim * cfg.out_embed_dim)
+    return vision, text
+
+
+def gabor_error_scale(imgs, bank):
+    """[B, 2 n_k] float32 error scale of the Gabor features: for a mean,
+    S = mean |img| x sum |k| (the mean over pixels of sum |img k| of a
+    circular conv), for a variance S^2."""
+    import torch
+
+    s = (imgs.abs().double().mean(dim=(1, 2))[:, None]
+         * torch.as_tensor(bank, dtype=torch.float64, device=imgs.device).abs().sum(dim=(1, 2)))
+    return torch.stack([s, s * s], dim=-1).reshape(len(s), -1)
+
+
+def moten_error_scale(imgs, sin_bank, cos_bank):
+    """[B, n_channels] float32 error scale of the energies: sum |img| x
+    max(|sin|, |cos|) over the pixels."""
+    import numpy as np
+    import torch
+
+    filt = torch.as_tensor(np.maximum(np.abs(sin_bank), np.abs(cos_bank)), dtype=torch.float64,
+                           device=imgs.device).reshape(len(sin_bank), -1)
+    return imgs.abs().double().reshape(len(imgs), -1) @ filt.T
+
+
+class BatchesOf:
+    """The harness's dataset protocol (``len``, ``batches``) over seeded
+    card tensors: ids, token ids as captions, pixels as images."""
+
+    def __init__(self, ids, tokens, pixels):
+        self.ids, self.tokens, self.pixels = ids, tokens, pixels
+
+    def __len__(self):
+        return len(self.ids)
+
+    def batches(self, batch_size: int, mode: str = "both"):
+        for start in range(0, len(self.ids), batch_size):
+            stop = start + batch_size
+            yield self.ids[start:stop], self.tokens[start:stop], self.pixels[start:stop]
+
+
+def phase_extract() -> dict:
+    """Feature extraction on the card: the random-imagebind control at
+    ImageBind-Huge's full width (its weights held to numpy threefry, its
+    forward to float64), the extraction harness and its pickle, the Gabor and
+    motion-energy banks."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.config import LANG_CLS_FEAT_KEY, VISION_CLS_FEAT_KEY
+    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+    from multimodal_decoding_tpu_torch.extraction import extractors as EX
+    from multimodal_decoding_tpu_torch.extraction import gabor as G
+    from multimodal_decoding_tpu_torch.extraction import harness as HA
+    from multimodal_decoding_tpu_torch.extraction import imagebind as IB
+    from multimodal_decoding_tpu_torch.extraction import motion_energy as ME
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.utils import threefry as T
+    from multimodal_decoding_tpu_torch.utils.profiling import StageTimer
+
+    out, fails, timer = {}, [], StageTimer()
+    H.reset_launches()
+    HM.reset_launches()
+    gen = torch.Generator(device=DEVICE).manual_seed(EX_SEED)
+    rng = np.random.RandomState(EX_SEED)
+
+    # (1) the control network, built through the registry, its weights sampled
+    torch.cuda.reset_peak_memory_stats()
+    with timer.stage("init"):
+        model, cfg, _ = EX.build_extractor("random-imagebind", pretrained=False, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    kv, kt, _ = T.split(T.prng_key(EX_SEED), 3)
+    kvs, kts = T.split(kv, cfg.vision_layers + 3), T.split(kt, cfg.text_layers + 2)
+    d_v, last = cfg.vision_embed_dim, cfg.vision_layers - 1
+    sampled = {"vision.patch_w": (kvs[0], cfg.patch_dim ** -0.5),
+               "text.token_embed": (kts[0], 0.02),
+               f"vision.blocks.{last}.mlp.fc1.weight": (T.split(kvs[2 + last], 4)[2], d_v ** -0.5)}
+    weights, unequal, checked = model.state_dict(), 0, 0
+    for name, (key, scale) in sampled.items():
+        flat = weights[name].reshape(-1)
+        start = int(rng.randint(0, flat.numel() - EX_SAMPLE))
+        ref = T.normal_flat(key, start, start + EX_SAMPLE) * np.float32(scale)
+        got = flat[start:start + EX_SAMPLE].cpu().numpy()
+        unequal += int((got.view(np.int32) != ref.view(np.int32)).sum())
+        checked += EX_SAMPLE
+    out["control"] = {"init_s": timer.stages["init"], "parameters": n_params,
+                      "weight_gb": sum(p.numel() * p.element_size()
+                                       for p in model.parameters()) / 1e9,
+                      "sampled_weights": checked, "unequal_to_numpy_threefry": unequal,
+                      "init_peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if unequal:
+        fails.append(f"{unequal} of {checked} sampled weights differ from numpy threefry")
+
+    # (2) seeded inputs in the host preprocessing's layout, the forward timed
+    def inputs(n):
+        px = torch.rand((n, 3, cfg.image_size, cfg.image_size), generator=gen, device=DEVICE)
+        mean = torch.tensor(IB.IMAGE_MEAN, device=DEVICE)[:, None, None]
+        std = torch.tensor(IB.IMAGE_STD, device=DEVICE)[:, None, None]
+        tokens = IB.clip_tokenize(["" for _ in range(n)], cfg, tokenizer=lambda texts: [
+            rng.randint(0, IB.SOT_TOKEN, rng.randint(5, 41)).tolist() for _ in texts])
+        return torch.as_tensor(tokens, device=DEVICE), (px - mean) / std
+
+    vision_flops, text_flops = imagebind_flops(cfg)
+    weight_bytes = out["control"]["weight_gb"] * 1e9
+    forward = {}
+    for b in EX_BATCHES:
+        ids, px = inputs(b)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), timer.stage(f"forward_{b}"):
+            ms = cuda_time_ms(lambda: IB.imagebind_embed(model, cfg, ids, px),
+                              reps=10 if b <= 16 else 3, warmup=2 if b <= 16 else 1)
+        flops = b * (vision_flops + text_flops)
+        bound_ms = max(flops / FP32_FLOP_PER_S, weight_bytes / HBM_BYTES_PER_S) * 1e3
+        forward[b] = {"ms_per_batch": ms, "stimuli_per_s": b / ms * 1e3,
+                      "ms_per_stimulus": ms / b, "bound_ms": bound_ms,
+                      "bound_by": "operations" if flops / FP32_FLOP_PER_S
+                      >= weight_bytes / HBM_BYTES_PER_S else "bytes",
+                      "bound_share": bound_ms / ms, "tflops_per_s": flops / ms / 1e9,
+                      "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["forward"] = forward
+    out["gflop_per_stimulus"] = {"vision": vision_flops / 1e9, "text": text_flops / 1e9}
+
+    # (3) the same modules in float64 on the card, batch 2
+    ids, px = inputs(EX_F64_BATCH)
+    with torch.inference_mode(), timer.stage("float64_check"):
+        text32, vision32 = IB.imagebind_embed(model, cfg, ids, px)
+        model64 = copy.deepcopy(model).double()
+        text64, vision64 = IB.imagebind_embed(model64, cfg, ids, px.double())
+        scale = float(model.text.log_logit_scale.exp().clamp(max=IB.MAX_LOGIT_SCALE))
+        dv = float((vision32.double() - vision64).abs().max())
+        dt = float((text32.double() - text64).abs().max())
+        del model64
+    torch.cuda.empty_cache()
+    out["float64"] = {"batch": EX_F64_BATCH, "vision_max_abs_delta": dv,
+                      "text_max_abs_delta": dt, "logit_scale": scale}
+    if not (dv <= EX_EMBED_TOL and dt <= EX_EMBED_TOL * scale):
+        fails.append(f"float32 vs float64 embeds: vision {dv}, text {dt} (scale {scale})")
+
+    # (4) the extraction harness over seeded batches, read back by the data layer
+    n = EX_HARNESS_BATCHES * EX_BATCHES[0]
+    ids, px = inputs(n)
+    stim_ids = list(range(1000, 1000 + n))
+    emitted = {}
+
+    def extract(batch_ids, tokens, pixels):
+        with torch.inference_mode():
+            t, v = IB.imagebind_embed(model, cfg, tokens, pixels)
+        feats = {LANG_CLS_FEAT_KEY: t.cpu().numpy(), VISION_CLS_FEAT_KEY: v.cpu().numpy()}
+        for i, sid in enumerate(batch_ids):
+            emitted[sid] = {k: f[i] for k, f in feats.items()}
+        return feats
+
+    path = os.path.join(WS.dir("extract"), "random-imagebind.p")
+    with timer.stage("harness"):
+        HA.run_extraction(extract, "random-imagebind", BatchesOf(stim_ids, ids, px),
+                          batch_size=EX_BATCHES[0], out_path=path, progress=False)
+    read = _load_feature_pickle(path)
+    rows_equal = sorted(read) == stim_ids and all(
+        read[s].keys() == {LANG_CLS_FEAT_KEY, VISION_CLS_FEAT_KEY}
+        and all(r.dtype == np.float32 and r.shape == (cfg.out_embed_dim,)
+                and np.array_equal(r, emitted[s][k]) for k, r in read[s].items())
+        for s in stim_ids)
+    with torch.inference_mode():
+        again = IB.imagebind_embed(model, cfg, ids[:EX_BATCHES[0]], px[:EX_BATCHES[0]])[1]
+    rerun = float(np.abs(again.cpu().numpy() - np.stack(
+        [read[s][VISION_CLS_FEAT_KEY] for s in stim_ids[:EX_BATCHES[0]]])).max())
+    out["harness"] = {"stimuli": n, "batches": EX_HARNESS_BATCHES, "seconds": timer.stages["harness"],
+                      "rows_equal": rows_equal, "rerun_max_abs_delta": rerun}
+    if not rows_equal or rerun > 1e-6:
+        fails.append(f"harness pickle: rows equal {rows_equal}, rerun delta {rerun}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (5) the Gabor bank on the CLI's batch, against float64 and scipy
+    from scipy import ndimage
+
+    imgs = torch.rand((EX_BANK_N, EX_GABOR_PX, EX_GABOR_PX), generator=gen, device=DEVICE) * 255
+    bank = G._padded_bank(G.make_gabor_filterbank())
+    torch.cuda.reset_peak_memory_stats()
+    with timer.stage("gabor"):
+        ms = cuda_time_ms(lambda: G.compute_gabor_feats_batch(imgs, bank), reps=3, warmup=1)
+        feats = G.compute_gabor_feats_batch(imgs, bank)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with timer.stage("gabor_float64"):
+        ref = torch.cat([G.compute_gabor_feats_batch(imgs[i:i + 25].double(), bank)
+                         for i in range(0, EX_BANK_N, 25)])
+    err = (feats.double() - ref).abs()
+    scaled = float((err / gabor_error_scale(imgs, bank)).max())
+    col_rel = (err / ref.abs().max(dim=0).values).reshape(EX_BANK_N, -1, 2).amax(dim=(0, 1))
+    k, n_img = EX_SCIPY[1], EX_SCIPY[0]
+    small = G.compute_gabor_feats_batch(imgs[:n_img], G._padded_bank(
+        G.make_gabor_filterbank()[:k])).cpu().numpy()
+    host = imgs[:n_img].cpu().double().numpy()
+    scipy_ref = np.array([[v for kern in G.make_gabor_filterbank()[:k]
+                           for f in [ndimage.convolve(host[b], kern, mode="wrap")]
+                           for v in (f.mean(), f.var())] for b in range(n_img)])
+    scipy_ok = bool(np.allclose(small, scipy_ref, rtol=2e-3, atol=2e-2))
+    taps = bank.shape[-1] ** 2
+    flops = 2 * taps * EX_GABOR_PX ** 2 * bank.shape[0] * EX_BANK_N
+    out["gabor"] = {
+        "images": EX_BANK_N, "px": EX_GABOR_PX, "kernels": bank.shape[0], "taps": taps,
+        "ms_per_batch": ms, "conv_output_gb": EX_BANK_N * bank.shape[0] * EX_GABOR_PX ** 2 * 4 / 1e9,
+        "gflop_per_image": flops / EX_BANK_N / 1e9, "bound_ms": flops / FP32_FLOP_PER_S * 1e3,
+        "bound_by": "operations", "tflops_per_s": flops / ms / 1e9, "peak_device_gb": peak,
+        "float64_s": timer.stages["gabor_float64"], "max_err_over_error_scale": scaled,
+        "max_rel_to_column_max": {"mean": float(col_rel[0]), "var": float(col_rel[1])},
+        "scipy_within_rtol_2e-3_atol_2e-2": scipy_ok,
+        "scipy_max_abs_delta": float(np.abs(small - scipy_ref).max())}
+    if not (scaled <= EX_BANK_TOL and scipy_ok and torch.isfinite(feats).all()):
+        fails.append(f"gabor: {scaled} of the error scale, scipy {scipy_ok}")
+    del imgs, feats, ref, err
+    torch.cuda.empty_cache()
+
+    # (6) motion energy at the CLI's 96 px, against float64
+    imgs = torch.rand((EX_BANK_N, EX_MOTEN_PX, EX_MOTEN_PX), generator=gen, device=DEVICE) * 255
+    sin_b, cos_b, channels = ME.build_spatial_pyramid(EX_MOTEN_PX)
+    host_ms = cuda_time_ms(lambda: ME.motion_energy_features(imgs, sin_b, cos_b), reps=10)
+    banks = [torch.as_tensor(b, device=DEVICE) for b in (sin_b, cos_b)]  # as the extractor holds them
+    with timer.stage("moten"):
+        ms = cuda_time_ms(lambda: ME.motion_energy_features(imgs, *banks), reps=10)
+        feats = ME.motion_energy_features(imgs, *banks)
+    ref = ME.motion_energy_features(imgs.double(), sin_b, cos_b)
+    err = (feats.double() - ref).abs()
+    scaled = float((err / moten_error_scale(imgs, sin_b, cos_b)).max())
+    flops = 2 * 2 * EX_BANK_N * EX_MOTEN_PX ** 2 * len(channels)
+    moved = (2 * len(channels) + EX_BANK_N) * EX_MOTEN_PX ** 2 * 4 + EX_BANK_N * len(channels) * 4
+    out["moten"] = {"images": EX_BANK_N, "px": EX_MOTEN_PX, "channels": len(channels),
+                    "ms_per_batch": ms, "ms_per_batch_banks_from_host": host_ms,
+                    "bound_ms": max(flops / FP32_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+                    "bound_by": "operations" if flops / FP32_FLOP_PER_S
+                    >= moved / HBM_BYTES_PER_S else "bytes",
+                    "max_err_over_error_scale": scaled,
+                    "max_rel_err": float((err / ref.abs()).max())}
+    if len(channels) != 1361 or not scaled <= EX_BANK_TOL:
+        fails.append(f"motion energy: {len(channels)} channels, {scaled} of the error scale")
+
+    out["stage_s"] = dict(timer.stages)
+    out["hand_kernel_launches"] = {"chol_inv_panel": H.launches, **HM.launches}
+    if H.launches or any(HM.launches.values()):
+        fails.append(f"a hand kernel ran on the extraction path: {out['hand_kernel_launches']}")
+    if fails:
+        raise AssertionError(f"extract: {'; '.join(fails)}: {out}")
+    return out
+
+
 def kernels_line(results: dict) -> dict:
     """The {"kernels": [...]} summary: each kernel's launches on its main path
     (the CLI for chol_inv_panel, its scorer's run for the streamed ones) and
@@ -2130,7 +2414,8 @@ def main() -> int:
                    "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
                    "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
                    "study": phase_study, "ingest": phase_ingest, "dist": phase_dist,
-                   "analyses": phase_analyses, "flips": phase_flips,
+                   "analyses": phase_analyses, "extract": phase_extract,
+                   "flips": phase_flips,
                    "wb_profile": phase_wb_profile,
                    "profile": lambda: phase_profile(args.scorer)}[name]()
             results[name] = out

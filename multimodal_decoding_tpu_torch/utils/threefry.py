@@ -68,8 +68,8 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     return np.array([a[0], b[0]], dtype=np.uint32)
 
 
-def _counter_words(n: int):
-    i = np.arange(n, dtype=np.uint64)
+def _counter_words(n: int, start: int = 0):
+    i = np.arange(start, start + n, dtype=np.uint64)
     return (i >> np.uint64(32)).astype(np.uint32), (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
@@ -194,18 +194,33 @@ def erf_inv_f32(x) -> np.ndarray:
         return np.where(np.abs(x) == _F32(1), x * _F32(np.inf), p * x)
 
 
-def uniform(key: np.ndarray, shape, minval=0.0, maxval=1.0) -> np.ndarray:
-    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``."""
+def _uniform_from_bits(bits: np.ndarray, minval, maxval) -> np.ndarray:
     lo, hi = _F32(minval), _F32(maxval)
-    bits = random_bits(key, shape)
     floats = ((bits >> np.uint32(9)) | np.uint32(_ONE_BITS)).view(np.float32) - _F32(1)
     return np.maximum(lo, _fma(floats, hi - lo, lo))
 
 
+def uniform(key: np.ndarray, shape, minval=0.0, maxval=1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``."""
+    return _uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
+def _normal_from_bits(bits: np.ndarray) -> np.ndarray:
+    u = _uniform_from_bits(bits, np.nextafter(_F32(-1), _F32(0)), 1.0)
+    return _F32(np.sqrt(2)) * erf_inv_f32(u)
+
+
 def normal(key: np.ndarray, shape) -> np.ndarray:
     """``jax.random.normal(key, shape)`` (float32)."""
-    lo = np.nextafter(_F32(-1), _F32(0))
-    return _F32(np.sqrt(2)) * erf_inv_f32(uniform(key, shape, lo, 1.0))
+    return _normal_from_bits(random_bits(key, shape))
+
+
+def normal_flat(key: np.ndarray, start: int, stop: int) -> np.ndarray:
+    """``normal(key, shape).ravel()[start:stop]`` for any ``shape`` of at least
+    ``stop`` elements, without drawing the rest: element ``i`` of a draw
+    hashes the counter ``i`` whatever the shape."""
+    a, b = threefry2x32(key, *_counter_words(stop - start, start))
+    return _normal_from_bits(a ^ b)
 
 
 # ---------------------------------------------------------------------------

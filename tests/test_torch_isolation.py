@@ -13,7 +13,7 @@ import torch
 import multimodal_decoding_tpu_torch as port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "multimodal_decoding_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "multimodal_decoding_tpu")
 
 
 def _port_modules():
@@ -46,7 +46,11 @@ def test_every_port_module_is_found():
                      "decoding.cluster_postproc", "viz.maps", "viz.reporting", "viz.freeview",
                      "cli.export_results_maps", "cli.make_roi_mask", "preprocessing.events",
                      "preprocessing.spm_design", "preprocessing.masks",
-                     "preprocessing.beta_symlinks", "preprocessing.surface_transform"):
+                     "preprocessing.beta_symlinks", "preprocessing.surface_transform",
+                     "extraction.imagebind", "extraction.gabor", "extraction.motion_energy",
+                     "extraction.harness", "extraction.extractors", "extraction.visualbert",
+                     "cli.extract_features", "utils.profiling", "viz.plotting", "viz.roi",
+                     "viz.figures", "viz.comparison_plots", "cli.plot_results"):
         assert f"{port.__name__}.{expected}" in mods
 
 
@@ -86,9 +90,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
 
 
 def test_port_imports_without_the_figure_stack():
-    """The card machine has no matplotlib, pandas, seaborn or PIL: the package
-    and chip_smoke.py import with them made unimportable."""
-    blocked = ("matplotlib", "pandas", "seaborn", "PIL")
+    """The card machine has no transformers, matplotlib, pandas, seaborn or
+    PIL: the package and chip_smoke.py import with them made unimportable."""
+    blocked = ("transformers", "matplotlib", "pandas", "seaborn", "PIL")
     code = "\n".join([
         "import importlib, importlib.util, sys",
         *[f"sys.modules[{name!r}] = None" for name in blocked + FORBIDDEN],
