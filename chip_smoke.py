@@ -51,17 +51,43 @@ Phases, each printing one JSON line with its seconds:
              chol_inv_panel launches per fast CV (64 base blocks of PB 102/103
              per fold x 5 folds), every one a contiguous [6, PB, PB] tensor on
              the card and none through the plain version.
-7. wb      - one whole-brain decode at production scale: N=8192 train, 140
+7. precision - the TPU's reduced-precision selection path at full width (the
+             gate's problem: N=8192, 140 test, 3 imagery, K=750, D=1024, B=128,
+             6 alphas x 5 folds, 100 shuffles): each streamed-count kernel at
+             "default" (one bf16 pass on the tensor cores) and "high" (bf16 x
+             3), with float32 and bf16 first operands, against its plain
+             version at that precision (counts equal on integer inputs in
+             -16..16, accuracies within 1e-5 on Gaussian ones; CUDA-event ms,
+             the bf16 bound at 989 TFLOP/s, the plain version's ms and a
+             library yardstick, one bf16 cuBLAS product with float32 output);
+             "schur-cb16", "schur-cb16-ns" and "tri-inv" at [128, 750] against
+             Cholesky over the 6 production alphas within the JAX package's
+             bands (2e-2, 2e-4, 5e-5 at "highest"; "default" printed); the
+             gate's 2 blocks through run_searchlight with bf16 selection
+             storage on "schur-pallas" at "default" (scorers xla, pallas,
+             fused-pallas, fused-inv) and at "high" (the streamed ones), each
+             against the strict path: the agreement printed beside the JAX
+             package's 0.95 and the default gate's 0.998, where the alphas
+             differ the strict CV accuracy given up <= 1e-3, final scores
+             bitwise equal where they agree, 240 chol_inv_panel launches and
+             60 of the scorer's kernel at that precision; the searchlight
+             CLI with --fast-math on phase cli's data set: X_all stored in
+             bf16 (its dtype and device bytes as the block steps read it),
+             each map's mean |final score - phase cli's| <= 0.02, vertices/s
+             and alpha agreement printed; ridge_cv_dual at
+             "default" on phase wb_gate's 16 problems (agreement with their
+             strict alphas).  It needs phases cli and wb_gate before it.
+8. wb      - one whole-brain decode at production scale: N=8192 train, 140
              test, 3 imagery, V=327,684 (both fsaverage7 hemispheres), D=1024,
              6 alphas x 5 folds, from host numpy betas (10.7 GB) streamed into
              the gram; prints seconds per stage (gram and query kernels, CV
              selection, refit, predictions, score family) and the launches.
-8. wb_cli  - the port's whole-brain CLI in-process on a synthetic subject
+9. wb_cli  - the port's whole-brain CLI in-process on a synthetic subject
              (N=8192, D=1024, both hemispheres of icosphere(4) with --surface:
              the vertex count is the only cut): results.p at the contract path
              with the JAX package's schema, planted-signal accuracies > 0.9, a
              rerun that skips, 320 chol_inv_panel launches and no other kernel.
-9. stats   - the group statistics at production width: seeded null scores
+10. stats  - the group statistics at production width: seeded null scores
              [6 subjects, 100 nulls, 163,842 vertices] of the 4 member metrics
              of mod_agnostic_and_cross on both hemispheres (with NaN and
              degenerate vertices), swept through the port's null sweep
@@ -71,7 +97,7 @@ Phases, each printing one JSON line with its seconds:
              float64 numpy t-map (equal NaN patterns, max |dt| <= 1e-5 max |t|);
              host TFCE (native/tfce.cpp) over the first 512 min-maps of each
              hemisphere on icosphere(7) edges: ms a map, threads, projection.
-10. study  - the port's study CLI in-process on 6 synthetic planted-signal
+11. study  - the port's study CLI in-process on 6 synthetic planted-signal
              subjects (both hemispheres of icosphere(3), 256 train stimuli,
              K=375 neighbours, D=1024, 100 nulls each, the 6-alpha CV): every
              artifact at the JAX package's paths, significant vertices, a
@@ -81,28 +107,31 @@ Phases, each printing one JSON line with its seconds:
              same null_max and p-values, and the export CLI writing every
              subject, average and min-composite GIfTI map, each read back
              equal to the map it came from.
-11. ingest - streamed betas ingestion at production width, nothing cut: one
+12. ingest - streamed betas ingestion at production width, nothing cut: one
              fsaverage7 hemisphere (8,192 train + 140 test + 3 imagery rows x
              163,842 vertices, 1% NaN columns, a planted signal from a seed)
              written as the betas npz caches (5.46 GB, row chunk by row
              chunk); the streamed statistics and device X_all
              (parallel/ingest.py) against the eager load + standardisation +
              upload: statistics bitwise equal, torch.equal of the two card
-             tensors; seconds of each pass, file-read and H2D GB/s, host peak
+             tensors, and the bf16 stream of fast math torch.equal to the
+             eager tensor cast to bf16; seconds of each pass, file-read and
+             H2D GB/s, host peak
              RSS growth of each path; then 2 runner blocks (B = 128, K = 750,
              6 alphas, 100 nulls) from each tensor: equal outputs, 240
              chol_inv_panel launches from the streamed one.
-12. dist   - the multi-GPU paths on a world of one NCCL rank (one card holds
+13. dist   - the multi-GPU paths on a world of one NCCL rank (one card holds
              one rank): the gate's 2 blocks through run_searchlight(mesh=...)
              against mesh=None (alphas and nulls equal, scores within rtol
              2e-5 / atol 2e-6, 240 launches), the whole-brain CLI with
              --multichip on phase wb_cli's data set (equal accuracies and
              predictions, 320 launches), the permutation CLI with --sharded
              on phase study's searchlights (equal null_max and p-values),
-             entry() and dryrun_multichip(1); wall seconds of each sharded
+             entry() and dryrun_multichip(1) with its step (3b), bf16
+             selection storage at "default"; wall seconds of each sharded
              run beside its unsharded one.  It needs phases wb_cli and study
              before it in the same call.
-13. analyses - the analyses on the card: the Monte-Carlo t calibration at
+14. analyses - the analyses on the card: the Monte-Carlo t calibration at
              the reference's production shape (10,000 permutations x 6
              subjects x (73 latents + 3 predictions) x 1024 = 4.67e9
              normals), its draws held bit-equal to the numpy draws on one
@@ -114,7 +143,7 @@ Phases, each printing one JSON line with its seconds:
              apart and run_all_conditions(n_seeds=10) projected; CSLS on
              [140, 1024] x [140, 1024], knn 100, against the CPU (1e-5);
              no hand-written kernel runs on this path.
-14. extract - feature extraction: the random-imagebind control built on the
+15. extract - feature extraction: the random-imagebind control built on the
              card from seed 0 through the extractor registry at
              ImageBind-Huge's full width (~0.98e9 weights, drawn as the JAX
              package draws them; 1.05e6 sampled weights bit-equal to numpy
@@ -154,8 +183,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "wb", "wb_cli", "stats",
-          "study", "ingest", "dist", "analyses", "extract")
+PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "precision", "wb", "wb_cli",
+          "stats", "study", "ingest", "dist", "analyses", "extract")
 EXTRA_PHASES = ("profile", "wb_profile", "flips")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
@@ -249,6 +278,30 @@ STREAMED = [  # (kernel, TPU kernel it replaces)
     ("streamed_acc_from_inv", "multimodal_decoding_tpu/ops/pallas_metrics.py:157"),
     ("streamed_acc_from_factors", "multimodal_decoding_tpu/ops/pallas_metrics.py:230"),
 ]
+# the reduced-precision selection path: the tensor-core variants of the
+# streamed counts, the bf16 solvers and the bf16 selection storage
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
+TC_PRECISIONS = ("default", "high")
+
+# the JAX package's agreement bar for bf16 selection, set on its own strong
+# planted signal (tests/test_searchlight.py:297-332, held on the port by
+# tests/test_torch_precision.py); printed here, where the gate's graded
+# signal leaves many vertices with near-tied alphas (on such a signal the
+# JAX package's own bf16 selection falls below it too, alpha for alpha with
+# the port: tests/test_torch_precision.py::test_cv_bf16_selection_on_a_graded_signal)
+PRECISION_AGREEMENT_BAR = 0.95
+# where the bf16 selection picks another alpha than the strict path, the
+# strict CV accuracy it gives up: at most 1e-3 (at nv = 1639, ~2,700 of the
+# 2.7e6 comparisons of a fold), below the two decimals the CLIs report
+SELECTION_REGRET_MAX = 1e-3
+# --fast-math against the float32 CLI run: the mean |score delta| of each
+# map, tests/test_torch_fast_math.py's bar (an imagery accuracy moves in
+# steps of 1/6, so one flipped near-tie moves a vertex by that much)
+FAST_MATH_SCORE_DELTA_MAX = 0.02
+# the JAX package's bands against Cholesky (tests/test_solvers.py:59-60)
+SOLVER_BANDS = {"tri-inv": 5e-5, "schur-cb16": 2e-2, "schur-cb16-ns": 2e-4}
+PRECISION_SCORERS = {"default": ("xla", "pallas", "fused-pallas", "fused-inv"),
+                     "high": ("pallas", "fused-pallas", "fused-inv")}
 
 
 def emit(obj) -> None:
@@ -520,14 +573,15 @@ class GateProblem:
         self.shuffles = np.stack(create_null_distr_shuffled_indices(P)).astype(np.int32)
         self.stim_types = np.array(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
 
-    def run(self, solver, scorer, mesh=None):
-        """The runner over both blocks, on one device or a "v" mesh: (scores, aux)."""
+    def run(self, solver, scorer, mesh=None, **kw):
+        """The runner over both blocks, on one device or a "v" mesh: (scores,
+        aux).  ``kw``: more run_searchlight arguments (cv_precision, ...)."""
         from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 
         return run_searchlight(*self.problem, self.adjacency, self.stim_types,
                                alphas_cv=ALPHAS, shuffles=self.shuffles, block_size=B,
                                mesh=mesh, device=None if mesh else DEVICE, cv_solver=solver,
-                               cv_scorer=scorer, progress=False)
+                               cv_scorer=scorer, progress=False, **kw)
 
     def cv_grids(self, runs):
         """Per block, the CV-score grids [B, A] of fit_block_cv for each
@@ -775,6 +829,7 @@ def phase_profile(scorer: str = "xla") -> dict:
 
 def phase_cli() -> dict:
     import numpy as np
+    import torch
 
     from multimodal_decoding_tpu_torch import config
     from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
@@ -786,62 +841,67 @@ def phase_cli() -> dict:
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
     from multimodal_decoding_tpu_torch.ops import metrics as M
 
-    with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_") as root:
-        t0 = time.time()
-        mesh = icosphere(4)
-        info = make_synthetic_dataset(root, n_train=N_TRAIN, n_vertices=mesh.n_vertices,
-                                      latent_dim=D, model="imagebind", hemis=["left"])
-        config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
-        config.LATENT_FEATURES_DIR = info["features_dir"]
-        config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
-        _load_feature_pickle.cache_clear()
-        mesh_dir = os.path.join(root, "surfaces", "fsaverage7")
-        os.makedirs(mesh_dir)
-        write_freesurfer_geometry(os.path.join(mesh_dir, "lh.inflated"), mesh)
-        dataset_s = time.time() - t0
+    root = WS.dir("cli")  # kept for phase precision's --fast-math run
+    t0 = time.time()
+    mesh = icosphere(4)
+    info = make_synthetic_dataset(root, n_train=N_TRAIN, n_vertices=mesh.n_vertices,
+                                  latent_dim=D, model="imagebind", hemis=["left"])
+    config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
+    config.LATENT_FEATURES_DIR = info["features_dir"]
+    config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
+    _load_feature_pickle.cache_clear()
+    mesh_dir = os.path.join(root, "surfaces", "fsaverage7")
+    os.makedirs(mesh_dir)
+    write_freesurfer_geometry(os.path.join(mesh_dir, "lh.inflated"), mesh)
+    dataset_s = time.time() - t0
 
-        out_dir = os.path.join(root, "sl")
-        argv = ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
-                "--subjects", "sub-01", "--model", "imagebind", "--hemis", "left",
-                "--n-neighbors", str(K), "--l2-alphas", *[str(a) for a in ALPHAS],
-                "--create-null-distr", "--n-permutations-per-subject", str(P),
-                "--block-size", str(B), "--mesh-dir", os.path.join(root, "surfaces"),
-                "--out-dir", out_dir, "--device", DEVICE]
-        H.reset_launches()
-        HM.reset_launches()
-        t1 = time.time()
-        paths = cli.main(argv)
-        cli_s = time.time() - t1
-        launches = H.launches
-        if any(HM.launches.values()):
-            raise AssertionError(f"the default path launched streamed kernels: {HM.launches}")
+    out_dir = os.path.join(root, "sl")
+    argv = ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
+            "--subjects", "sub-01", "--model", "imagebind", "--hemis", "left",
+            "--n-neighbors", str(K), "--l2-alphas", *[str(a) for a in ALPHAS],
+            "--create-null-distr", "--n-permutations-per-subject", str(P),
+            "--block-size", str(B), "--mesh-dir", os.path.join(root, "surfaces"),
+            "--out-dir", out_dir, "--device", DEVICE]
+    H.reset_launches()
+    HM.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    paths = cli.main(argv)
+    cli_s = time.time() - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = H.launches
+    if any(HM.launches.values()):
+        raise AssertionError(f"the default path launched streamed kernels: {HM.launches}")
 
-        if len(paths) != 1:
-            raise AssertionError(f"expected one results pickle, got {paths}")
-        res = artifacts.load_pickle(paths[0])
-        null = artifacts.load_null_scores_npz(
-            os.path.join(os.path.dirname(paths[0]), "null_distr.npz"))
-        n_vert = int((~res["nan_locations"]).sum())
-        for m, v in res["score_maps"].items():
-            if v.shape != (n_vert,) or not np.all(np.isfinite(v)):
-                raise AssertionError(f"score map {m}: shape {v.shape}, finite "
-                                     f"{bool(np.all(np.isfinite(v)))}")
-        for m, v in null.items():
-            if v.shape != (n_vert, P) or not np.all(np.isfinite(v)):
-                raise AssertionError(f"null scores {m}: shape {v.shape}")
-        means = {m: float(np.mean(res["score_maps"][m])) for m in (M.ACC_CAPTIONS, M.ACC_IMAGES)}
-        if min(means.values()) <= 0.9:
-            raise AssertionError(f"planted-signal accuracies too low: {means}")
-        expected = -(-n_vert // B) * LAUNCHES_PER_BLOCK
-        if launches != expected:
-            raise AssertionError(f"{launches} kernel launches in the CLI run, "
-                                 f"expected {expected}")
-        return {"vertices": n_vert, "vertices_per_sec": res["vertices_per_sec"],
-                "searchlight_s": res["elapsed_s"], "cli_s": cli_s,
-                "dataset_s": dataset_s, "mean_acc": means,
-                "best_alpha_counts": {str(a): int(c) for a, c in
-                                      zip(*np.unique(res["best_alpha"], return_counts=True))},
-                "launches": launches}
+    if len(paths) != 1:
+        raise AssertionError(f"expected one results pickle, got {paths}")
+    res = artifacts.load_pickle(paths[0])
+    null = artifacts.load_null_scores_npz(
+        os.path.join(os.path.dirname(paths[0]), "null_distr.npz"))
+    n_vert = int((~res["nan_locations"]).sum())
+    for m, v in res["score_maps"].items():
+        if v.shape != (n_vert,) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"score map {m}: shape {v.shape}, finite "
+                                 f"{bool(np.all(np.isfinite(v)))}")
+    for m, v in null.items():
+        if v.shape != (n_vert, P) or not np.all(np.isfinite(v)):
+            raise AssertionError(f"null scores {m}: shape {v.shape}")
+    means = {m: float(np.mean(res["score_maps"][m])) for m in (M.ACC_CAPTIONS, M.ACC_IMAGES)}
+    if min(means.values()) <= 0.9:
+        raise AssertionError(f"planted-signal accuracies too low: {means}")
+    expected = -(-n_vert // B) * LAUNCHES_PER_BLOCK
+    if launches != expected:
+        raise AssertionError(f"{launches} kernel launches in the CLI run, "
+                             f"expected {expected}")
+    WS.runs["cli"] = {"argv": argv, "info": info, "results": paths[0], "cli_s": cli_s,
+                      "peak_gb": peak_gb, "launches": launches}
+    return {"vertices": n_vert, "vertices_per_sec": res["vertices_per_sec"],
+            "device_peak_gb": peak_gb,
+            "searchlight_s": res["elapsed_s"], "cli_s": cli_s,
+            "dataset_s": dataset_s, "mean_acc": means,
+            "best_alpha_counts": {str(a): int(c) for a, c in
+                                  zip(*np.unique(res["best_alpha"], return_counts=True))},
+            "launches": launches}
 
 
 class PanelCalls:
@@ -960,6 +1020,7 @@ def phase_wb_gate() -> dict:
         if streamed:
             raise AssertionError(f"problem {rep}: {streamed} streamed-count launches")
     calls.check("wb_gate")
+    WS.runs["wb_gate"] = {"noise": [float(x) for x in noise_scales], "problems": problems}
     chosen = sorted({p["strict_alpha"] for p in problems})
     out = {"cv_solver": cv_solver, "reps": len(problems), "n": N_TRAIN, "f": WB_GATE_F, "d": D,
            "agreement": sum(p["strict_alpha"] == p["fast_alpha"] for p in problems),
@@ -983,6 +1044,352 @@ def phase_wb_gate() -> dict:
         fails.append(f"launches per fast CV {out['launches_per_fast_cv']}, not {WB_LAUNCHES}")
     if fails:
         raise AssertionError(f"wb_gate: {'; '.join(fails)}: {out}")
+    return out
+
+
+def precision_inputs(name: str, kind: str, seed: int) -> tuple:
+    """Main-path-shaped inputs of a streamed scorer for the precision variants,
+    on the card, laid out as streamed_inputs lays them out.  Integer inputs
+    lie in -16..16, which bf16 holds exactly and float32 sums exactly, so
+    every variant counts exactly: latent rows of sixteen +-1 entries (unit
+    rows of +-1/4) and, for streamed_acc_from_inv, signed diagonal inverses
+    of +-1, +-2, so Z = inv U stays an integer bf16 holds."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def draw(*shape):
+        if kind == "integer":
+            return torch.randint(-16, 17, shape, generator=gen, device=DEVICE).float()
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    if name == "streamed_pairwise_acc":
+        if kind == "integer":
+            top = torch.rand((NV, D), generator=gen, device=DEVICE).topk(16, dim=-1).indices
+            signs = torch.randint(0, 2, top.shape, generator=gen, device=DEVICE).float() * 2 - 1
+            latents = torch.zeros((NV, D), device=DEVICE).scatter_(1, top, signs)
+        else:
+            latents = draw(NV, D)
+        return draw(B, NV, D), latents
+    Xv_b = draw(NV, B, K).permute(1, 0, 2)
+    Z = HM.padded_empty(B, K, NV, DEVICE).copy_(draw(B, K, NV))
+    if name == "streamed_acc_from_inv":
+        if kind == "integer":
+            vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=DEVICE)
+            inv = torch.diag_embed(vals[torch.randint(0, 4, (B, K), generator=gen,
+                                                      device=DEVICE)])
+        else:
+            inv = draw(B, K, K) / K
+        return Xv_b, inv, Z
+    return Xv_b, Z
+
+
+def bf16_passes(precision: str, *dtypes) -> int:
+    """bf16 products per float32 product at ``precision``: one at "default";
+    at "high" hi.hi + hi.lo + lo.hi, two where an operand is bf16 (it has no
+    low part), as the kernels issue them."""
+    import torch
+
+    if precision == "default":
+        return 1
+    return 2 if torch.bfloat16 in dtypes else 3
+
+
+def kernel_precision_variant(name: str, precision: str) -> dict:
+    """One streamed-count kernel at ``precision`` against its plain version,
+    with a float32 and a bf16 first operand, at the main path's shapes."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    kernel, plain = getattr(HM, name), getattr(HM, name + "_plain")
+    out = {}
+    for a_dtype in (torch.float32, torch.bfloat16):
+        key = str(a_dtype).removeprefix("torch.")
+        args = list(precision_inputs(name, "integer", seed=21))
+        args[0] = args[0].to(a_dtype)
+        got, ref = kernel(*args, precision=precision), plain(*args, precision=precision)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name} at {precision}, {key} first operand, integer "
+                                 f"inputs: counts differ at {int((got != ref).sum())} of "
+                                 f"{B} vertices")
+        del args, got, ref
+        args = list(precision_inputs(name, "gaussian", seed=22))
+        args[0] = args[0].to(a_dtype)
+        got, ref = kernel(*args, precision=precision), plain(*args, precision=precision)
+        torch.cuda.synchronize()
+        max_abs = float((got - ref).abs().max())
+        if not (max_abs <= ACC_TOL):
+            raise AssertionError(f"{name} at {precision}, {key} first operand, Gaussian "
+                                 f"inputs: max |acc - plain| {max_abs:.3e} > {ACC_TOL:g}")
+        ms = cuda_time_ms(lambda: kernel(*args, precision=precision), reps=10, warmup=2)
+        plain_ms = cuda_time_ms(lambda: plain(*args, precision=precision), reps=5, warmup=1)
+        # the same products by cuBLAS, one bf16 pass with float32 output, no count
+        b16 = [a.to(torch.bfloat16).contiguous() for a in args]
+        if name == "streamed_pairwise_acc":
+            y16 = HM._unit_rows(args[1]).mT.to(torch.bfloat16).contiguous()
+            p16 = b16[0].reshape(B * NV, D)
+
+            def library():
+                return torch.mm(p16, y16, out_dtype=torch.float32)
+        elif name == "streamed_acc_from_inv":
+            def library():
+                z = torch.bmm(b16[1], b16[2], out_dtype=torch.float32).to(torch.bfloat16)
+                return torch.bmm(b16[0], z, out_dtype=torch.float32)
+        else:
+            def library():
+                return torch.bmm(b16[0], b16[1], out_dtype=torch.float32)
+        library_ms = cuda_time_ms(library, reps=10, warmup=2)
+        # the count GEMM's second operand (latents, Z) is float32; B4's Z GEMM
+        # (inv U) takes two float32 operands
+        depth = D if name == "streamed_pairwise_acc" else K
+        flops = 2.0 * B * NV * NV * depth * bf16_passes(precision, a_dtype, torch.float32)
+        if name == "streamed_acc_from_inv":
+            flops += 2.0 * B * K * K * NV * bf16_passes(precision, torch.float32)
+        # each input read once at its own width, the [B] accuracies written once
+        in_bytes = sum(a.numel() * a.element_size() for a in args)
+        bytes_ms = (in_bytes + B * 4) / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOP_PER_S * 1e3
+        out[key] = {"max_abs_err": max_abs, "integer_counts_equal": True, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library_ratio": ms / library_ms, "bound_ms": max(bytes_ms, flops_ms),
+                    "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+                    "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+        del args, got, ref, b16
+    return out
+
+
+def precision_solvers() -> dict:
+    """The bf16 and triangular-inverse solvers at [128, 750] over the
+    production alphas, against Cholesky: within the JAX package's bands at
+    "highest", printed at "default"; each method's ms at both."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops.solvers import spd_solve
+
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    X = torch.randn((B, N_TRAIN, K), generator=gen, device=DEVICE)
+    G = X.mT @ X
+    del X
+    rhs = torch.randn((B, K, 64), generator=gen, device=DEVICE)
+    eye = torch.eye(K, device=DEVICE)
+    err = {m: {p: [] for p in ("highest", "default")} for m in SOLVER_BANDS}
+    for alpha in ALPHAS:
+        A = G + alpha * eye
+        ref = spd_solve(A, rhs, "cholesky")
+        scale = float(ref.abs().max())
+        for method in SOLVER_BANDS:
+            for prec in ("highest", "default"):
+                got = spd_solve(A, rhs, method, precision=prec)
+                err[method][prec].append(float((got - ref).abs().max()) / scale)
+    A = G + ALPHAS[2] * eye
+    out = {"shape": [B, K, K], "rhs": [B, K, 64], "alphas": ALPHAS,
+           "cholesky_ms": cuda_time_ms(lambda: spd_solve(A, rhs, "cholesky"), reps=5)}
+    fails = []
+    for method, band in SOLVER_BANDS.items():
+        out[method] = {
+            "max_rel_err": {p: max(e) for p, e in err[method].items()},
+            "rel_err_by_alpha": err[method], "band": band,
+            "ms": {p: cuda_time_ms(lambda: spd_solve(A, rhs, method, precision=p), reps=5)
+                   for p in ("highest", "default")}}
+        if not max(err[method]["highest"]) < band:
+            fails.append(f"{method}: max rel err {max(err[method]['highest']):.3e} "
+                         f">= {band:g}")
+    if fails:
+        raise AssertionError(f"precision solvers: {'; '.join(fails)}: {out}")
+    return out
+
+
+def precision_selection() -> dict:
+    """The gate's 2 blocks with bf16 selection storage on "schur-pallas" at
+    each tensor-core precision, each scorer against the strict path."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+
+    gate = GateProblem()
+    strict, strict_aux = gate.run(None, "strict")
+    # the strict path's CV accuracies [2B, A], to price each swapped alpha
+    grid = torch.cat(gate.cv_grids([("strict", None, "strict")])["strict"]).cpu().numpy()
+    alpha_col = {a: i for i, a in enumerate(np.float32(ALPHAS))}
+    strict_col = np.array([alpha_col[a] for a in strict_aux["best_alpha"]])
+    out, fails = {"strict_vertices_per_sec": strict_aux["vertices_per_sec"]}, []
+    for precision, scorers in PRECISION_SCORERS.items():
+        for scorer in scorers:
+            H.reset_launches()
+            HM.reset_launches()
+            got, aux = gate.run("schur-pallas", scorer, cv_precision=precision,
+                                cv_dtype=torch.bfloat16)
+            agree = aux["best_alpha"] == strict_aux["best_alpha"]
+            equal_where_agree = (
+                all(np.array_equal(got[m][agree], strict[m][agree]) for m in strict)
+                and all(np.array_equal(aux["null_scores"][m][agree], v[agree])
+                        for m, v in strict_aux["null_scores"].items()))
+            kernel = STREAMED_SCORERS.get(scorer)
+            expected = {k: dict.fromkeys(HM.launches_by_precision[k], 0) for k in HM.KERNELS}
+            if kernel:
+                expected[kernel][precision] = 2 * SCORER_CALLS_PER_BLOCK
+            launches = {k: dict(v) for k, v in HM.launches_by_precision.items()}
+            fast_col = np.array([alpha_col[a] for a in aux["best_alpha"]])
+            rows = np.arange(len(fast_col))
+            regret = grid[rows, strict_col] - grid[rows, fast_col]
+            res = {**compare_paths(got, aux, strict, strict_aux),
+                   "jax_bar": PRECISION_AGREEMENT_BAR, "default_gate_bar": ALPHA_AGREEMENT_MIN,
+                   "max_strict_cv_regret": float(regret.max()),
+                   "mean_strict_cv_regret_where_swapped": (
+                       float(regret[~agree].mean()) if (~agree).any() else 0.0),
+                   "final_scores_equal_where_alphas_agree": bool(equal_where_agree),
+                   "chol_inv_panel_launches": H.launches,
+                   "launches": {k: v for k, v in launches.items() if any(v.values())},
+                   "vertices_per_sec": aux["vertices_per_sec"]}
+            out[f"{scorer}:{precision}"] = res
+            where = f"{scorer} at {precision}"
+            if res["max_strict_cv_regret"] > SELECTION_REGRET_MAX:
+                fails.append(f"{where}: a swapped alpha gives up "
+                             f"{res['max_strict_cv_regret']:.3e} of strict CV accuracy "
+                             f"> {SELECTION_REGRET_MAX:g}")
+            if not equal_where_agree:
+                fails.append(f"{where}: final scores differ where the alphas agree")
+            if H.launches != 2 * LAUNCHES_PER_BLOCK:
+                fails.append(f"{where}: {H.launches} chol_inv_panel launches, expected "
+                             f"{2 * LAUNCHES_PER_BLOCK}")
+            if launches != expected:
+                fails.append(f"{where}: streamed launches {launches}, expected {expected}")
+    if fails:
+        raise AssertionError(f"precision selection: {'; '.join(fails)}: {out}")
+    return out
+
+
+def precision_fast_math_cli() -> dict:
+    """The searchlight CLI with --fast-math on phase cli's data set, against
+    phase cli's float32 run."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
+    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+    from multimodal_decoding_tpu_torch.io import artifacts
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+
+    from multimodal_decoding_tpu_torch.parallel import searchlight_runner as R
+
+    run = WS.runs["cli"]
+    config.FMRI_STIM_INFO_DIR = run["info"]["stim_info_dir"]
+    config.LATENT_FEATURES_DIR = run["info"]["features_dir"]
+    config.BETAS_CACHE_DIR = os.path.join(os.path.dirname(run["info"]["stim_info_dir"]),
+                                          "betas_cache")
+    _load_feature_pickle.cache_clear()
+    argv = list(run["argv"])
+    argv[argv.index("--out-dir") + 1] = WS.dir("cli_fast_math")
+    H.reset_launches()
+    HM.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    # the X_all every block step reads: its dtype and device bytes
+    stored = set()
+    steps = ("searchlight_block", "searchlight_block_with_null", "searchlight_block_cv",
+             "searchlight_block_cv_with_null")
+    originals = {n: getattr(R, n) for n in steps}
+
+    def recording(fn):
+        def step(X_all, *args, **kw):
+            stored.add((str(X_all.dtype), X_all.untyped_storage().nbytes(), X_all.numel()))
+            return fn(X_all, *args, **kw)
+        return step
+
+    for n, fn in originals.items():
+        setattr(R, n, recording(fn))
+    t0 = time.time()
+    try:
+        (path,) = quiet(cli.main, argv + ["--fast-math"])
+    finally:
+        for n, fn in originals.items():
+            setattr(R, n, fn)
+    cli_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res, ref = artifacts.load_pickle(path), artifacts.load_pickle(run["results"])
+    n_vert = int((~res["nan_locations"]).sum())
+    n_rows = N_TRAIN + N_TEST + N_IMAG
+    deltas = {m: np.abs(res["score_maps"][m] - v) for m, v in ref["score_maps"].items()}
+    out = {"x_all_stored": [{"dtype": d, "device_bytes": nb, "elements": ne}
+                            for d, nb, ne in sorted(stored)],
+           "x_all_bytes": {"bfloat16": n_rows * n_vert * 2, "float32": n_rows * n_vert * 4},
+           "device_peak_gb": {"fast_math": peak_gb, "float32": run["peak_gb"]},
+           "vertices_per_sec": {"fast_math": res["vertices_per_sec"],
+                                "float32": ref["vertices_per_sec"]},
+           "cli_s": {"fast_math": cli_s, "float32": run["cli_s"]},
+           "alpha_agreement": float(np.mean(res["best_alpha"] == ref["best_alpha"])),
+           "mean_final_score_delta": {m: float(d.mean()) for m, d in deltas.items()},
+           "max_final_score_delta": float(max(d.max() for d in deltas.values())),
+           "launches": H.launches}
+    fails = []
+    bad = [m for m, v in res["score_maps"].items()
+           if v.shape != (n_vert,) or not np.all(np.isfinite(v))]
+    if bad:
+        fails.append(f"non-finite or misshapen maps {bad}")
+    if [(d, nb) for d, nb, _ in stored] != [("torch.bfloat16", n_rows * n_vert * 2)]:
+        fails.append(f"X_all stored as {sorted(stored)}, not {n_rows} x {n_vert} bf16")
+    far = {m: v for m, v in out["mean_final_score_delta"].items()
+           if not v <= FAST_MATH_SCORE_DELTA_MAX}
+    if far:
+        fails.append(f"mean |final score - float32 run's| {far} > {FAST_MATH_SCORE_DELTA_MAX}")
+    if H.launches != run["launches"] or any(HM.launches.values()):
+        fails.append(f"launches {H.launches} (float32 run {run['launches']}), streamed "
+                     f"{HM.launches}")
+    if fails:
+        raise AssertionError(f"--fast-math CLI: {'; '.join(fails)}: {out}")
+    return out
+
+
+def precision_whole_brain() -> dict:
+    """ridge_cv_dual at "default" on phase wb_gate's 16 problems, against their
+    strict alphas and CV scores."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops.ridge import ridge_cv_dual
+
+    wb = WS.runs["wb_gate"]
+    agree, deltas, launches, t = 0, [], set(), 0.0
+    for rep, (noise, prob) in enumerate(zip(wb["noise"], wb["problems"])):
+        Kg, _, Y = wb_gate_problem(rep, noise)
+        H.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        idx, scores, _ = ridge_cv_dual(Kg, Y[:N_TRAIN], ALPHAS, cv_solver="schur-pallas",
+                                       device=DEVICE, cv_precision="default")
+        torch.cuda.synchronize()
+        t += time.time() - t0
+        launches.add(H.launches)
+        agree += int(ALPHAS[idx] == prob["strict_alpha"])
+        deltas.append(float(np.max(np.abs(scores - np.asarray(prob["strict_cv_scores"])))))
+        del Kg, Y
+    out = {"agreement": agree, "reps": len(wb["problems"]),
+           "max_cv_score_delta": max(deltas), "s_per_cv": t / len(wb["problems"]),
+           "launches_per_cv": sorted(launches)}
+    if out["launches_per_cv"] != [WB_LAUNCHES]:
+        raise AssertionError(f"whole-brain CV at default: launches {out['launches_per_cv']}, "
+                             f"not {WB_LAUNCHES}: {out}")
+    return out
+
+
+def phase_precision() -> dict:
+    """The TPU's reduced-precision selection path on the card (phase 7)."""
+    if not {"cli", "wb_gate"} <= set(WS.runs):
+        raise AssertionError("phase precision needs phases cli and wb_gate before it")
+    out = {"kernels": {f"{name}:{precision}": kernel_precision_variant(name, precision)
+                       for name, _ in STREAMED for precision in TC_PRECISIONS}}
+    out["solvers"] = precision_solvers()
+    out["selection"] = precision_selection()
+    out["fast_math_cli"] = precision_fast_math_cli()
+    out["whole_brain"] = precision_whole_brain()
     return out
 
 
@@ -1734,6 +2141,13 @@ def phase_ingest() -> dict:
     del train, std64
     stats_equal = bool(np.array_equal(mean32, e_mean) and np.array_equal(scale32, e_scale))
     tensors_equal = bool(torch.equal(X_stream, X_eager))
+    # fast math's bf16 stream: the eager float32 X_all cast to bf16, exactly
+    t0 = time.time()
+    X_bf16 = streamed_x_all_device(readers, keep, mean32, scale32, device=DEVICE,
+                                   dtype=torch.bfloat16)
+    bf16_upload_s = time.time() - t0
+    bf16_equal = bool(torch.equal(X_bf16, X_eager.to(torch.bfloat16)))
+    del X_bf16
 
     # two runner blocks from each tensor
     kept = coords[keep]
@@ -1768,6 +2182,7 @@ def phase_ingest() -> dict:
            "eager": {"load_s": load_s, "standardize_s": standardize_s,
                      "upload_s": eager_upload_s, "host_peak_gb": eager_rss.growth / 1e9},
            "statistics_bitwise_equal": stats_equal, "x_all_equal": tensors_equal,
+           "bf16_upload_s": bf16_upload_s, "bf16_x_all_equal_eager_cast": bf16_equal,
            "runs_equal": bool(runs_equal), "launches": launches,
            "expected_launches": 2 * LAUNCHES_PER_BLOCK,
            "streamed_vertices_per_sec": got_aux["vertices_per_sec"],
@@ -1778,6 +2193,8 @@ def phase_ingest() -> dict:
         fails.append("streamed statistics differ from the eager ones")
     if not tensors_equal:
         fails.append("the streamed X_all differs from the eager one")
+    if not bf16_equal:
+        fails.append("the streamed bf16 X_all differs from the eager one cast to bf16")
     if not runs_equal:
         fails.append("the runner's outputs differ between the two tensors")
     if launches != 2 * LAUNCHES_PER_BLOCK:
@@ -1896,9 +2313,12 @@ def phase_dist() -> dict:
         preds, scores = quiet(E.dryrun_multichip, 1, DEVICE)
         out["entry"] = {"shape": list(block.shape), "finite": bool(block.isfinite().all()),
                         "launches": entry_launches, "dryrun_s": time.time() - t0,
-                        "dryrun_preds_shape": list(preds.shape), "dryrun_maps": len(scores)}
+                        "dryrun_preds_shape": list(preds.shape), "dryrun_maps": len(scores),
+                        "dryrun_cvtpu_maps": sum(m.startswith("cvtpu_") for m in scores)}
         if not out["entry"]["finite"]:
             fails.append("entry(): non-finite block scores")
+        if "cvtpu_best_alpha" not in scores:  # step (3b): bf16 selection at "default"
+            fails.append(f"dryrun_multichip: no step (3b) maps among {sorted(scores)}")
     finally:
         dist.destroy_process_group()
     if fails:
@@ -2364,6 +2784,7 @@ def kernels_line(results: dict) -> dict:
                                if m.get("shape", [None])[0] != B],
     }]
     scorer_of = {kernel: scorer for scorer, kernel in STREAMED_SCORERS.items() if kernel}
+    precision = results.get("precision", {})
     for name, replaces in STREAMED:
         measured = results.get("kernel", {}).get(name, {})
         run = results.get("scorers", {}).get(scorer_of[name], {})
@@ -2371,8 +2792,27 @@ def kernels_line(results: dict) -> dict:
             "name": name, "route": "cuda",
             "source": "multimodal_decoding_tpu_torch/csrc/streamed_count.cu",
             "replaces": replaces, "launches": run.get("launches", {}).get(name),
+            "precision": "highest",
             **{k: measured.get(k) for k in keys}, "library_ratio": measured.get("library_ratio"),
         })
+        # the tensor-core variants: launches from the bf16 selection run of
+        # their scorer at that precision, times with the bf16 first operand
+        # that run hands them (and with a float32 one beside it)
+        for prec in TC_PRECISIONS:
+            variant = precision.get("kernels", {}).get(f"{name}:{prec}", {})
+            main = variant.get("bfloat16", {})
+            sel = precision.get("selection", {}).get(f"{scorer_of[name]}:{prec}", {})
+            kernels.append({
+                "name": f"{name}:{prec}", "route": "cuda",
+                "source": "multimodal_decoding_tpu_torch/csrc/streamed_count.cu",
+                "replaces": replaces, "precision": prec,
+                "launches": sel.get("launches", {}).get(name, {}).get(prec),
+                "first_operand": "bfloat16",
+                **{k: main.get(k) for k in keys if k != "shape"},
+                "library_ratio": main.get("library_ratio"),
+                "float32_first_operand": {k: variant.get("float32", {}).get(k)
+                                          for k in ("ms", "max_abs_err", "bound_ms")},
+            })
     return {"kernels": kernels}
 
 
@@ -2412,6 +2852,7 @@ def main() -> int:
             t0 = time.time()
             out = {"build": phase_build, "kernel": phase_kernel, "gate": phase_gate,
                    "scorers": phase_scorers, "cli": phase_cli, "wb_gate": phase_wb_gate,
+                   "precision": phase_precision,
                    "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
                    "study": phase_study, "ingest": phase_ingest, "dist": phase_dist,
                    "analyses": phase_analyses, "extract": phase_extract,

@@ -6,7 +6,9 @@ on the CPU, and without a GPU the run stops rather than falling back).
 ``--multichip`` feature-shards the gram over the ranks of the world
 (``parallel/mesh.feature_mesh``): one process per GPU under ``torchrun``,
 and a world of one without it.  Started by ``torchrun`` the CLI shards the
-gram with or without the flag, and rank 0 writes ``results.p``.
+gram with or without the flag, and rank 0 writes ``results.p``.  The CV
+selection runs the device's shipped solver (``default_wb_cv_solver``) at its
+shipped precision (``ops/precision.default_cv_precision``).
 
     python -m multimodal_decoding_tpu_torch.cli.decode_whole_brain \\
         --betas-dir <betas> --subjects sub-01 --models imagebind --surface \\

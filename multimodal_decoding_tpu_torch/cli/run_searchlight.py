@@ -74,7 +74,8 @@ def get_args(argv=None):
     parser.add_argument("--out-dir", type=str, default=SEARCHLIGHT_OUT_DIR)
     parser.add_argument("--overwrite", action="store_true", default=False)
     parser.add_argument("--fast-math", action="store_true", default=False,
-                        help="bfloat16 storage; not ported yet, the port runs float32")
+                        help="bfloat16 X_all storage and every product at one bf16 pass "
+                             "(precision 'default')")
     parser.add_argument("--adjacency-cache-dir", type=str, default="auto",
                         help="cache dir for the kNN/radius adjacency build; "
                              "'auto' = <out-dir>/.adjacency_cache, 'none' disables")

@@ -5,7 +5,8 @@ Port of ``multimodal_decoding_tpu/cli/run_study.py`` with the same flags plus
 a GPU the run stops rather than falling back).  It drives
 ``decoding.study.run_study``: all training modes' null searchlights, then
 group permutation stats + TFCE significance, with the same idempotent
-skip/resume behaviour at every stage.  ``--fast-math`` is ROADMAP A15.
+skip/resume behaviour at every stage.  ``--fast-math`` runs the
+searchlights on bf16 storage at one bf16 pass, as ``run_searchlight``'s.
 Started by ``torchrun`` (``WORLD_SIZE`` > 1) both stages split their work
 over the ranks of the world, one process per GPU; rank 0 writes.
 
@@ -67,7 +68,8 @@ def get_args(argv=None):
     p.add_argument("--permutation-out-dir", type=str, default=None)
     p.add_argument("--block-size", type=int, default=None)
     p.add_argument("--fast-math", action="store_true", default=False,
-                   help="bfloat16 storage; not ported yet (ROADMAP A15)")
+                   help="bfloat16 X_all storage and every searchlight product at one "
+                        "bf16 pass (precision 'default')")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="device to run on (default cuda; no CPU fallback)")
     return p.parse_args(argv)

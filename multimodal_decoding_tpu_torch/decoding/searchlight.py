@@ -14,8 +14,11 @@ each package reads the other's outputs.
 
 ``SearchlightConfig.device`` picks the device (``None`` = ``cuda``, which
 raises without a GPU).  The CV fast path (``fast_cv=True``) selects alphas
-with ``default_cv_solver`` and the scale-invariant fold scorer; the refit is
-always the strict Cholesky solve.
+with the scale-invariant fold scorer and the device's shipped selection
+settings, ``default_cv_solver``, ``default_cv_precision`` and
+``default_cv_dtype``; the refit is always the strict Cholesky solve.
+``fast_math`` stores ``X_all`` in bf16 and runs every product at
+``"default"``, one bf16 pass (``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from multimodal_decoding_tpu_torch.config import (
     DEFAULT_MODEL,
@@ -53,6 +57,7 @@ from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.io import artifacts
 from multimodal_decoding_tpu_torch.io.surface import knn_adjacency, radius_adjacency
 from multimodal_decoding_tpu_torch.ops import metrics as M
+from multimodal_decoding_tpu_torch.ops.precision import default_cv_dtype, default_cv_precision
 from multimodal_decoding_tpu_torch.parallel.ingest import (
     NpzMemberReader,
     streamed_scaler_fit,
@@ -76,17 +81,10 @@ def default_cv_solver(device=None) -> str:
     Elsewhere "schur-cb", as the JAX package chooses off the TPU.
     """
     if device is None:
-        import torch
-
         on_cuda = torch.cuda.is_available()
     else:
         on_cuda = resolve_device(device).type == "cuda"
     return "schur-pallas" if on_cuda else "schur-cb"
-
-
-def default_cv_dtype():
-    """Selection-path storage dtype: float32 (``None``) everywhere for now."""
-    return None
 
 
 def default_null_gather() -> str:
@@ -145,10 +143,11 @@ class SearchlightConfig:
     out_dir: str | None = None
     overwrite: bool = False
     progress: bool = True
-    # bf16 storage is a TPU choice that waits for a gated PR (ROADMAP A15)
+    # bf16 X_all storage and every product at "default" (one bf16 pass)
     fast_math: bool = False
-    # CV selection with default_cv_solver and the scale-invariant scorer;
-    # False selects with the strict Cholesky solve and cosine-distance scorer
+    # CV selection with the scale-invariant scorer at the device's shipped
+    # default_cv_solver / default_cv_precision / default_cv_dtype; False
+    # selects with the strict Cholesky solve and cosine-distance scorer
     fast_cv: bool = True
     # cache directory for the kNN/radius adjacency build (None disables)
     adjacency_cache_dir: str | None = None
@@ -278,13 +277,12 @@ def _stream_ingest_readers(cfg: SearchlightConfig, subject, training_mode, hemi)
 
 def run(cfg: SearchlightConfig) -> list:
     """subject x training_mode x hemi loop (reference searchlight.py:181-296)."""
-    if cfg.fast_math:
-        raise NotImplementedError(
-            "fast_math (bf16 storage) is not ported yet (ROADMAP A15); the port runs float32")
     _stream_ingest_mode(cfg.stream_ingest)  # a bad value fails before any work
     mesh = resolve_mesh(cfg.mesh, VERTEX_AXIS, cfg.device)
     device = mesh.device if mesh is not None else resolve_device(cfg.device)
     use_cv = cfg.alphas_cv is not None
+    fast_sel = cfg.fast_cv and use_cv
+    x_dtype = torch.bfloat16 if cfg.fast_math else torch.float32
     shuffles = None
     if cfg.create_null_distr:
         shuffles = np.stack(
@@ -319,7 +317,7 @@ def run(cfg: SearchlightConfig) -> list:
                     keep = ~nan_locations
                     mean32, scale32 = streamed_scaler_fit(stream_readers[0], keep)
                     x_all_device = streamed_x_all_device(stream_readers, keep, mean32,
-                                                         scale32, device=device)
+                                                         scale32, device=device, dtype=x_dtype)
                     n_rows_split = tuple(r.n_rows for r in stream_readers)
                 else:
                     train_fmri, _, _ = get_fmri_surface_data(
@@ -370,10 +368,12 @@ def run(cfg: SearchlightConfig) -> list:
                     device=device,
                     x_all_device=x_all_device,
                     n_rows_split=n_rows_split,
-                    cv_solver=(default_cv_solver(device)
-                               if cfg.fast_cv and use_cv else None),
+                    dtype=x_dtype,
+                    precision="default" if cfg.fast_math else "highest",
+                    cv_precision=default_cv_precision(device) if fast_sel else None,
+                    cv_solver=default_cv_solver(device) if fast_sel else None,
                     cv_scorer="xla" if cfg.fast_cv else "strict",
-                    cv_dtype=default_cv_dtype(),
+                    cv_dtype=default_cv_dtype(device) if fast_sel else None,
                     checkpoint_path=results_path + ".ckpt.npz",
                     # --overwrite redoes the work from scratch; a stale
                     # mid-run checkpoint must not silently resume under it

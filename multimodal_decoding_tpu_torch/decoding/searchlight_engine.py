@@ -20,9 +20,10 @@ and the streamed-count scorers ``"pallas"``, ``"fused-pallas"`` and
 ``"fused-inv"`` (hand-written kernels in ``ops/hopper_metrics.py``) with
 their dense twin ``"fused"``.
 
-Everything is float32.  The JAX package's TPU selection options wait for
-later PRs and raise here: ``cv_dtype`` (bf16 selection storage),
-``cv_unroll`` and ``cv_alpha_batch`` (ROADMAP A15).
+Precision: every function takes the JAX function's ``precision`` (the fit,
+refit and prediction products) and, for the CV sweep, ``cv_precision`` and
+``cv_dtype`` (the selection path only), with the TPU's meaning on every
+device (``ops/precision.py``).  The defaults are the strict float32 path.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
 from multimodal_decoding_tpu_torch.ops import metrics as M
+from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.ridge import first_argmax_with_tol, kfold_indices
 from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse, spd_solve
 
@@ -63,30 +65,32 @@ def gather_patches(X: torch.Tensor, idx: torch.Tensor, mask=None) -> torch.Tenso
     return patches
 
 
-def _gram(Xg: torch.Tensor) -> torch.Tensor:
-    """[N, B, K] -> [B, K, K] = sum_n X[n, b, :]^T X[n, b, :]."""
+def _gram(Xg: torch.Tensor, precision="highest") -> torch.Tensor:
+    """[N, B, K] -> [B, K, K] = sum_n X[n, b, :]^T X[n, b, :], float32."""
     Xb = Xg.permute(1, 0, 2)  # [B, N, K] view
-    return Xb.mT @ Xb
+    return PR.matmul(Xb.mT, Xb, precision)
 
 
-def _cross(Xg: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """[N, B, K], [N, D] -> [B, K, D] = sum_n X[n, b, :]^T Y[n, :]."""
+def _cross(Xg: torch.Tensor, Y: torch.Tensor, precision="highest") -> torch.Tensor:
+    """[N, B, K], [N, D] -> [B, K, D] = sum_n X[n, b, :]^T Y[n, :], float32."""
     n, b, k = Xg.shape
-    return (Xg.reshape(n, b * k).mT @ Y).reshape(b, k, Y.shape[-1])
+    return PR.matmul(Xg.reshape(n, b * k).mT, Y, precision).reshape(b, k, Y.shape[-1])
 
 
-def fit_block(X_train_g: torch.Tensor, Y_train: torch.Tensor, alpha,
+def fit_block(X_train_g: torch.Tensor, Y_train: torch.Tensor, alpha, precision="highest",
               solver: str = "cholesky") -> torch.Tensor:
     """Batched closed-form ridge over a vertex block: [N, B, K], [N, D] -> W [B, K, D]."""
-    G = _gram(X_train_g)
-    XtY = _cross(X_train_g, Y_train)
+    G = _gram(X_train_g, precision)
+    XtY = _cross(X_train_g, Y_train, precision)
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
-    return spd_solve(G + alpha * eye, XtY, method=solver)
+    return spd_solve(G + alpha * eye, XtY, method=solver, precision=precision)
 
 
-def predict_block(X_query_g: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """X_query_g [M, B, K], W [B, K, D] -> preds [B, M, D]."""
-    return X_query_g.permute(1, 0, 2) @ W
+def predict_block(X_query_g: torch.Tensor, W: torch.Tensor, precision="highest",
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """X_query_g [M, B, K], W [B, K, D] -> preds [B, M, D] (``out_dtype``
+    bfloat16: the bf16 product of bf16 operands)."""
+    return PR.matmul(X_query_g.permute(1, 0, 2), W, precision, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +103,14 @@ def fit_block_cv(
     Y_train: torch.Tensor,
     alphas: torch.Tensor,
     n_splits: int = 5,
+    precision="highest",
     solver: str = "cholesky",
+    cv_precision=None,
     cv_solver: str | None = None,
     cv_scorer: str = "xla",
     cv_dtype=None,
     cv_unroll: bool = False,
-    cv_alpha_batch: bool = False,
+    cv_alpha_batch: bool | int = False,
 ):
     """Per-vertex alpha selection via K-fold CV (sklearn-split parity).
 
@@ -113,11 +119,19 @@ def fit_block_cv(
     full gram minus the validation rows' gram, so the 5-fold sweep costs ~2
     gram passes instead of 5; contiguous folds are slices, not gathers.
 
-    ``cv_solver`` applies only to the alpha-selection solves (the refit uses
-    ``solver``).  ``cv_scorer``: "xla" is the scale-invariant fold scorer
-    (unnormalised predictions against unit latent rows); "strict"
-    materialises cosine-distance matrices like the final metrics; "pallas"
-    counts the same comparisons as "xla" with the streamed kernel
+    ``cv_precision``, ``cv_solver`` and ``cv_dtype`` apply only to the
+    alpha-selection path (fold grams, per-alpha solves, validation
+    predictions and scoring); the refit keeps ``precision``/``solver``.
+    ``None`` inherits the strict settings.  ``cv_dtype`` (``torch.bfloat16``)
+    stores the selection operands (the per-fold patch slices, never the
+    whole patch tensor, the targets, the per-alpha weights and the
+    predictions) in that dtype, with float32 sums; the refit never touches
+    them.
+
+    ``cv_scorer``: "xla" is the scale-invariant fold scorer (unnormalised
+    predictions against unit latent rows); "strict" materialises
+    cosine-distance matrices like the final metrics; "pallas" counts the
+    same comparisons as "xla" with the streamed kernel
     (``HM.streamed_pairwise_acc``).  The "fused*" scorers reassociate
     ``sim = Xv W Yv_n^T`` through K: ``U = XtY_tr Yv_n^T`` once per fold,
     ``inv = (G_tr + a I)^-1`` per alpha, ``sim = Xv (inv U)``, with no
@@ -125,69 +139,99 @@ def fit_block_cv(
     "fused-pallas" streams it from ``Z = inv U``
     (``HM.streamed_acc_from_factors``) and "fused-inv" forms ``Z`` inside
     the kernel's call too (``HM.streamed_acc_from_inv``).
+
+    ``cv_alpha_batch`` (``True`` or a chunk that divides the alpha count;
+    "xla" scorer only) inverts ``chunk`` alpha-shifted systems in one
+    ``spd_inverse`` call over ``[chunk * B, K, K]``.  ``cv_unroll`` is the
+    same sweep: the JAX package unrolls its ``lax.map`` over alphas so XLA
+    can overlap them, and PyTorch, which runs eagerly, already issues the
+    alphas one after another, so there is nothing to unroll.
     """
-    if cv_dtype is not None:
-        raise ValueError("cv_dtype (bf16 selection storage) is not ported yet "
-                         "(ROADMAP A15); the port's selection path is float32")
     if cv_scorer not in CV_SCORERS:
         raise ValueError(f"unknown cv_scorer {cv_scorer!r}; use one of {CV_SCORERS}")
-    if cv_unroll or cv_alpha_batch:
-        raise ValueError("cv_unroll / cv_alpha_batch are not ported yet (ROADMAP A15)")
+    if cv_alpha_batch and cv_scorer != "xla":
+        # the alpha-batched sweep implements only the xla fold scorer
+        raise ValueError(f"cv_alpha_batch requires cv_scorer='xla'; got {cv_scorer!r}")
+    del cv_unroll  # the eager sweep is already "unrolled" (see above)
+    cv_precision = precision if cv_precision is None else cv_precision
     cv_solver = solver if cv_solver is None else cv_solver
     n = X_train_g.shape[0]
     k = X_train_g.shape[-1]
     folds = kfold_indices(n, n_splits)
+    Y_sel = Y_train if cv_dtype is None else Y_train.to(cv_dtype)
+    pred_dtype = torch.float32 if cv_dtype is None else cv_dtype
 
-    G_full = _gram(X_train_g)
-    XtY_full = _cross(X_train_g, Y_train)
+    G_full = _gram(X_train_g, precision)
+    XtY_full = _cross(X_train_g, Y_train, precision)
     eye = torch.eye(k, dtype=G_full.dtype, device=G_full.device)
+
+    def k_by_nv(x, y):
+        """x @ y [B, K, nv] at cv_precision; for the streamed kernels into
+        rows that start 16 bytes apart, which they copy 16 bytes at a time."""
+        out = (None if cv_scorer == "fused"
+               else HM.padded_empty(x.shape[0], k, y.shape[-1], x.device))
+        return PR.matmul(x, y, cv_precision, out=out)
 
     def fold_scores(val_idx: np.ndarray) -> torch.Tensor:
         lo, hi = int(val_idx[0]), int(val_idx[-1]) + 1  # KFold folds are contiguous
-        Xv, Yv = X_train_g[lo:hi], Y_train[lo:hi]
+        Xv, Yv, Yv_sel = X_train_g[lo:hi], Y_train[lo:hi], Y_sel[lo:hi]
+        if cv_dtype is not None:
+            Xv = Xv.to(cv_dtype)  # the fold's slice only
         Yv_n = Yv / torch.linalg.vector_norm(Yv, dim=-1, keepdim=True)
-        G_tr = G_full - _gram(Xv)
-        XtY_tr = XtY_full - _cross(Xv, Yv)
-        out = []
+        Yv_n_sel = Yv_n if cv_dtype is None else Yv_n.to(cv_dtype)
+        G_tr = G_full - _gram(Xv, cv_precision)
+        XtY_tr = XtY_full - _cross(Xv, Yv_sel, cv_precision)
         if cv_scorer in _FUSED_SCORERS:
-            def k_by_nv(x, y):
-                """x @ y [B, K, nv]; for the streamed kernels into rows that
-                start 16 bytes apart, which they copy 16 bytes at a time."""
-                if cv_scorer == "fused":
-                    return x @ y
-                return torch.matmul(x, y, out=HM.padded_empty(x.shape[0], k, y.shape[-1],
-                                                              x.device))
-
-            U = k_by_nv(XtY_tr, Yv_n.mT)  # [B, K, nv], once per fold
+            U = k_by_nv(XtY_tr, Yv_n_sel.mT)  # [B, K, nv], once per fold
             Xv_b = Xv.permute(1, 0, 2)  # [B, nv, K] view, once per fold
+            out = []
             for a in range(alphas.shape[0]):
-                inv = spd_inverse(G_tr + alphas[a] * eye, method=cv_solver)
+                inv = spd_inverse(G_tr + alphas[a] * eye, method=cv_solver,
+                                  precision=cv_precision)
                 if cv_scorer == "fused-inv":
-                    out.append(HM.streamed_acc_from_inv(Xv_b, inv, U))
+                    out.append(HM.streamed_acc_from_inv(Xv_b, inv, U, cv_precision))
                     continue
                 Z = k_by_nv(inv, U)  # [B, K, nv]
                 if cv_scorer == "fused-pallas":
-                    out.append(HM.streamed_acc_from_factors(Xv_b, Z))
+                    out.append(HM.streamed_acc_from_factors(Xv_b, Z, cv_precision))
                 else:
-                    out.append(M.pairwise_acc_from_sim(Xv_b @ Z))
+                    out.append(M.pairwise_acc_from_sim(PR.matmul(Xv_b, Z, cv_precision)))
             return torch.stack(out)  # [A, B]
-        for a in range(alphas.shape[0]):
-            W = spd_solve(G_tr + alphas[a] * eye, XtY_tr, method=cv_solver)
-            preds = predict_block(Xv, W)  # [B, nv, D]
+
+        def score(W):
+            W_sel = W if cv_dtype is None else W.to(cv_dtype)
+            preds = predict_block(Xv, W_sel, cv_precision, out_dtype=pred_dtype)  # [B, nv, D]
             if cv_scorer == "xla":
-                out.append(M.pairwise_acc_scale_invariant(preds, Yv_n))
-            elif cv_scorer == "pallas":
-                out.append(HM.streamed_pairwise_acc(preds, Yv))
-            else:
-                out.append(M.pairwise_acc_from_dist(M.cosine_distances(preds, Yv)))
-        return torch.stack(out)  # [A, B]
+                return M.pairwise_acc_scale_invariant(preds, Yv_n_sel, cv_precision)
+            if cv_scorer == "pallas":
+                return HM.streamed_pairwise_acc(preds, Yv, cv_precision)
+            return M.pairwise_acc_from_dist(M.cosine_distances(preds, Yv, cv_precision))
+
+        if cv_alpha_batch:
+            a_cnt = alphas.shape[0]
+            chunk = a_cnt if cv_alpha_batch is True else int(cv_alpha_batch)
+            if a_cnt % chunk:
+                raise ValueError(f"cv_alpha_batch={chunk} must divide n_alphas={a_cnt}")
+            out = []
+            for c0 in range(0, a_cnt, chunk):
+                A_all = G_tr[None] + alphas[c0:c0 + chunk, None, None, None] * eye
+                inv_all = spd_inverse(A_all.reshape((-1,) + tuple(G_tr.shape[1:])),
+                                      method=cv_solver, precision=cv_precision)
+                for inv in inv_all.reshape(A_all.shape):
+                    out.append(score(PR.matmul(inv, XtY_tr, cv_precision)))
+            return torch.stack(out)  # [A, B]
+        return torch.stack([
+            score(spd_solve(G_tr + alphas[a] * eye, XtY_tr, method=cv_solver,
+                            precision=cv_precision, apply_dtype=cv_dtype))
+            for a in range(alphas.shape[0])])  # [A, B]
 
     # the fold mean as XLA computes it: a sum times the reciprocal count
     scores = M.count_ratio(torch.stack([fold_scores(v) for _, v in folds]).sum(dim=0),
                            len(folds))  # [A, B]
     best = first_argmax_with_tol(scores, axis=0)  # [B]
     best_alpha = alphas[best]
-    W = spd_solve(G_full + best_alpha[:, None, None] * eye, XtY_full, method=solver)
+    W = spd_solve(G_full + best_alpha[:, None, None] * eye, XtY_full, method=solver,
+                  precision=precision)
     return W, best_alpha, scores.T
 
 
@@ -459,29 +503,30 @@ def _split_patches(X_all, idx, mask, n_train, n_test):
 
 def searchlight_block(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, *,
                       layout: TestLayout, n_train: int, n_test: int,
-                      comp_cross: bool = True, solver: str = "cholesky"):
+                      comp_cross: bool = True, precision="highest",
+                      solver: str = "cholesky"):
     """One block step: gather -> fit -> predict -> score.  Returns {metric: [B]}.
 
-    X_all [N_all, V] = concat(train, test, imagery) rows; idx [B, K];
-    mask [B, K] or None.
+    X_all [N_all, V] = concat(train, test, imagery) rows (float32, or bf16
+    storage under fast math); idx [B, K]; mask [B, K] or None.
     """
     Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W = fit_block(Xtr, Y_train, alpha, solver=solver)
-    return score_block(predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag,
-                       layout, comp_cross_decoding_scores=comp_cross)
+    W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
+    return score_block(predict_block(Xte, W, precision), predict_block(Xim, W, precision),
+                       Y_test, Y_imag, layout, comp_cross_decoding_scores=comp_cross)
 
 
 def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
                                 shuffles, imagery_derangements, *,
                                 layout: TestLayout, n_train: int, n_test: int,
-                                comp_cross: bool = True, solver: str = "cholesky",
-                                null_gather: str = "gather"):
+                                comp_cross: bool = True, precision="highest",
+                                solver: str = "cholesky", null_gather: str = "gather"):
     """Block step that also emits the per-shuffle null score family."""
     Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W = fit_block(Xtr, Y_train, alpha, solver=solver)
+    W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
     return score_and_null_block(
-        predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag, layout, shuffles,
-        imagery_derangements, comp_cross_decoding_scores=comp_cross,
+        predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test, Y_imag,
+        layout, shuffles, imagery_derangements, comp_cross_decoding_scores=comp_cross,
         null_gather=null_gather,
     )
 
@@ -490,7 +535,8 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
                                    shuffles, imagery_derangements, *,
                                    layout: TestLayout, n_train: int, n_test: int,
                                    n_splits: int = 5, comp_cross: bool = True,
-                                   solver: str = "cholesky", cv_solver: str | None = None,
+                                   precision="highest", solver: str = "cholesky",
+                                   cv_precision=None, cv_solver: str | None = None,
                                    cv_scorer: str = "xla", cv_dtype=None,
                                    cv_unroll: bool = False, cv_alpha_batch: bool = False,
                                    null_gather: str = "gather"):
@@ -500,13 +546,14 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
     that vertex's CV-selected alpha.
     """
     Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, solver=solver,
+    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
+                                    solver=solver, cv_precision=cv_precision,
                                     cv_solver=cv_solver, cv_scorer=cv_scorer,
                                     cv_dtype=cv_dtype, cv_unroll=cv_unroll,
                                     cv_alpha_batch=cv_alpha_batch)
     main, null = score_and_null_block(
-        predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag, layout, shuffles,
-        imagery_derangements, comp_cross_decoding_scores=comp_cross,
+        predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test, Y_imag,
+        layout, shuffles, imagery_derangements, comp_cross_decoding_scores=comp_cross,
         null_gather=null_gather,
     )
     main = dict(main)
@@ -517,16 +564,18 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
 def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
                          layout: TestLayout, n_train: int, n_test: int,
                          n_splits: int = 5, comp_cross: bool = True,
-                         solver: str = "cholesky", cv_solver: str | None = None,
+                         precision="highest", solver: str = "cholesky",
+                         cv_precision=None, cv_solver: str | None = None,
                          cv_scorer: str = "xla", cv_dtype=None,
                          cv_unroll: bool = False, cv_alpha_batch: bool = False):
     """Block step with per-vertex CV alpha selection."""
     Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, solver=solver,
+    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
+                                    solver=solver, cv_precision=cv_precision,
                                     cv_solver=cv_solver, cv_scorer=cv_scorer,
                                     cv_dtype=cv_dtype, cv_unroll=cv_unroll,
                                     cv_alpha_batch=cv_alpha_batch)
-    scores = dict(score_block(predict_block(Xte, W), predict_block(Xim, W), Y_test, Y_imag,
-                              layout, comp_cross_decoding_scores=comp_cross))
+    scores = dict(score_block(predict_block(Xte, W, precision), predict_block(Xim, W, precision),
+                              Y_test, Y_imag, layout, comp_cross_decoding_scores=comp_cross))
     scores["best_alpha"] = best_alpha
     return scores

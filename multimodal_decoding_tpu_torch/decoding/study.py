@@ -58,8 +58,7 @@ class StudyConfig:
     searchlight_out_dir: str | None = None
     permutation_out_dir: str | None = None
     block_size: int | None = None
-    # bf16 storage waits for a gated PR (ROADMAP A15); the searchlight stage
-    # raises on True
+    # the searchlight stage's bf16 X_all storage and "default" products
     fast_math: bool = False
     progress: bool = True
     # adjacency build cache, shared across every (subject, mode, hemi) run

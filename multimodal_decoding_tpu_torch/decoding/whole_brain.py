@@ -161,13 +161,15 @@ def decode_single(
     cv_solver: str | None = "default",
     device=None,
     timings: dict | None = None,
+    cv_precision=None,
 ):
     """One decoder fit: CV alpha sweep + refit + test/imagery predictions.
 
     Returns (best_alpha, test_preds, imagery_preds, cv_mean_scores, fit_s),
     numpy arrays.  ``cv_solver``: "default" resolves per device
     (default_wb_cv_solver); None forces the strict oracle; any other name is
-    passed through.  ``timings``: if a dict, it gets ``cv_s``, ``refit_s``
+    passed through.  ``cv_precision``: the fast selection's precision
+    (``None``: ``ops/precision.default_cv_precision(device)``).  ``timings``: if a dict, it gets ``cv_s``, ``refit_s``
     and ``predict_s``, each stage ended by a device synchronisation.
     """
     device = resolve_device(device if gram_cache is None else gram_cache.device)
@@ -178,6 +180,7 @@ def decode_single(
     best_idx, mean_scores, dual = ridge_cv_dual(
         cache.K, np.asarray(train_latents, np.float32), list(alphas),
         n_splits=n_splits, cv_solver=cv_solver, device=device, timings=timings,
+        cv_precision=cv_precision,
     )
     fit_s = time.time() - t0
 

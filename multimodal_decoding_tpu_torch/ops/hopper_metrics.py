@@ -24,14 +24,19 @@ CPU tensor each runs its ``*_plain`` version: a dense ``sim`` by
 ``torch.matmul``, then ``M.pairwise_acc_from_sim``.  There is no fallback
 from one to the other.
 
-Precision: the JAX functions take ``precision`` because the TPU's matrix
-unit has pass counts.  These kernels take none: every product is float32
-FMAs with one float32 accumulator per entry, and the diagonal is taken from
-the kernel's own diagonal tile, so it is the arithmetic of the entries it is
-compared with.
+Precision: each function takes the JAX function's ``precision``
+(``ops/precision.py``: ``"highest"``, ``"high"`` or ``"default"``) and runs
+the kernel variant of that name: float32 FMAs at highest, bf16 tensor-core
+products (one pass, or three at high) with float32 accumulators otherwise.
+The first operand (``preds`` or ``Xv_b``) may be bf16, as the selection path
+hands it over under ``cv_dtype``; its values are exact.  Either way
+the diagonal is taken from the kernel's own diagonal tile, so it is the
+arithmetic of the entries it is compared with.  The plain versions compute
+``sim`` with ``ops/precision.matmul`` at the same precision.
 
-``launches`` counts each function's kernel calls on the card (one per call;
-the CPU path does not count); ``reset_launches`` sets them to 0.
+``launches`` counts each function's kernel calls on the card (one per call,
+whatever the variant; the CPU path does not count), ``launches_by_precision``
+the same per precision; ``reset_launches`` sets both to 0.
 """
 
 from __future__ import annotations
@@ -42,25 +47,31 @@ import torch
 
 from multimodal_decoding_tpu_torch.ops import _cuda_build
 from multimodal_decoding_tpu_torch.ops import metrics as M
+from multimodal_decoding_tpu_torch.ops import precision as PR
 
 _SOURCE = "streamed_count.cu"
 _STRIDED_GEMM = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                  ctypes.c_int]
 _SIGNATURES = {
-    "streamed_count_launch": _STRIDED_GEMM + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                              ctypes.c_void_p],
-    "gemm_store_launch": _STRIDED_GEMM + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    # ..., batch, nv, kd, precision, a_bf16, counts, stream
+    "streamed_count_launch": _STRIDED_GEMM + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+    # ..., batch, m, n, kd, precision, c, ldc, stream
+    "gemm_store_launch": _STRIDED_GEMM + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
 }
+# the source's `precision` argument
+_PRECISION_CODE = {"highest": 0, "default": 1, "high": 2}
 
 KERNELS = ("streamed_pairwise_acc", "streamed_acc_from_inv", "streamed_acc_from_factors")
 launches = dict.fromkeys(KERNELS, 0)
+launches_by_precision = {name: dict.fromkeys(PR.PRECISIONS, 0) for name in KERNELS}
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+        launches_by_precision[name] = dict.fromkeys(PR.PRECISIONS, 0)
 
 
 def padded_empty(batch: int, rows: int, cols: int, device) -> torch.Tensor:
@@ -75,9 +86,10 @@ def _unit_rows(latents: torch.Tensor) -> torch.Tensor:
     return latents / torch.linalg.vector_norm(latents, dim=-1, keepdim=True)
 
 
-def _uses_kernel(name: str, *tensors: torch.Tensor) -> bool:
-    """False for CPU tensors (plain version), True for float32 CUDA tensors; raises otherwise."""
-    devices = {t.device for t in tensors}
+def _uses_kernel(name: str, first: torch.Tensor, *others: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors the kernel
+    takes (a float32 or bf16 first operand, float32 others); raises otherwise."""
+    devices = {t.device for t in (first, *others)}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
     device = devices.pop()
@@ -85,7 +97,9 @@ def _uses_kernel(name: str, *tensors: torch.Tensor) -> bool:
         return False
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {device}")
-    for t in tensors:
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes a float32 or bf16 first operand; got {first.dtype}")
+    for t in others:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} kernel takes float32; got {t.dtype}")
     return True
@@ -104,34 +118,43 @@ def _call(fn_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
 
 
-def _count_on_card(name: str, a: torch.Tensor, a_strides, bm: torch.Tensor, bm_strides,
-                   b: int, nv: int, kd: int) -> torch.Tensor:
-    """Accuracies [b] of sim = A Bm by the count kernel, counted as a launch of ``name``.
+def _count_on_card(name: str, a: torch.Tensor, bm: torch.Tensor, bm_strides, b: int,
+                   nv: int, kd: int, precision: str) -> torch.Tensor:
+    """Accuracies [b] of sim = A Bm by the count kernel at ``precision``,
+    counted as a launch of ``name``.
 
-    ``a_strides`` = (batch, row, k) strides of A [b, nv, kd]; ``bm_strides``
-    = (batch, k, column) strides of Bm [b, kd, nv], in elements.
+    A [b, nv, kd] is float32 or bf16 (read k-contiguous: a bf16 A whose k
+    stride is not 1 is copied so); ``bm_strides`` = (batch, k, column)
+    strides of the float32 Bm [b, kd, nv], in elements.
     """
+    a_bf16 = a.dtype == torch.bfloat16
+    if a_bf16 and a.stride(-1) != 1:
+        a = a.contiguous()
     counts = torch.zeros((b,), dtype=torch.int32, device=a.device)
     if b and nv and kd:
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
-            _call("streamed_count_launch", a.data_ptr(), *a_strides, bm.data_ptr(),
-                  *bm_strides, b, nv, kd, counts.data_ptr(), stream)
+            _call("streamed_count_launch", a.data_ptr(), *a.stride(), bm.data_ptr(),
+                  *bm_strides, b, nv, kd, _PRECISION_CODE[precision], int(a_bf16),
+                  counts.data_ptr(), stream)
         launches[name] += 1
+        launches_by_precision[name][precision] += 1
     return M.count_ratio(counts, nv * nv - nv)
 
 
-def inv_times_u_on_card(inv: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """Z = inv [B, K, K] @ U [B, K, nv] by the source's GEMM kernel, into a
-    ``padded_empty`` view (the Z GEMM of ``streamed_acc_from_inv``; not
-    counted as a launch on its own)."""
+def inv_times_u_on_card(inv: torch.Tensor, U: torch.Tensor,
+                        precision: str = "highest") -> torch.Tensor:
+    """Z = inv [B, K, K] @ U [B, K, nv] by the source's GEMM kernel at
+    ``precision``, into a ``padded_empty`` view (the Z GEMM of
+    ``streamed_acc_from_inv``; not counted as a launch on its own)."""
     b, k, nv = U.shape
     Z = padded_empty(b, k, nv, U.device)
     if b and nv and k:
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
             _call("gemm_store_launch", inv.data_ptr(), *inv.stride(), U.data_ptr(),
-                  *U.stride(), b, k, nv, k, Z.data_ptr(), Z.stride(1), stream)
+                  *U.stride(), b, k, nv, k, _PRECISION_CODE[PR.resolve(precision)],
+                  Z.data_ptr(), Z.stride(1), stream)
     return Z
 
 
@@ -140,17 +163,19 @@ def inv_times_u_on_card(inv: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def streamed_pairwise_acc_plain(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
-    return M.pairwise_acc_from_sim(preds @ _unit_rows(latents).mT)
+def streamed_pairwise_acc_plain(preds: torch.Tensor, latents: torch.Tensor,
+                                precision="highest") -> torch.Tensor:
+    return M.pairwise_acc_from_sim(PR.matmul(preds, _unit_rows(latents).mT, precision))
 
 
-def streamed_acc_from_inv_plain(Xv_b: torch.Tensor, inv: torch.Tensor,
-                                U: torch.Tensor) -> torch.Tensor:
-    return M.pairwise_acc_from_sim(Xv_b @ (inv @ U))
+def streamed_acc_from_inv_plain(Xv_b: torch.Tensor, inv: torch.Tensor, U: torch.Tensor,
+                                precision="highest") -> torch.Tensor:
+    return M.pairwise_acc_from_sim(PR.matmul(Xv_b, PR.matmul(inv, U, precision), precision))
 
 
-def streamed_acc_from_factors_plain(Xv_b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
-    return M.pairwise_acc_from_sim(Xv_b @ Z)
+def streamed_acc_from_factors_plain(Xv_b: torch.Tensor, Z: torch.Tensor,
+                                    precision="highest") -> torch.Tensor:
+    return M.pairwise_acc_from_sim(PR.matmul(Xv_b, Z, precision))
 
 
 # ---------------------------------------------------------------------------
@@ -158,53 +183,60 @@ def streamed_acc_from_factors_plain(Xv_b: torch.Tensor, Z: torch.Tensor) -> torc
 # ---------------------------------------------------------------------------
 
 
-def streamed_pairwise_acc(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
+def streamed_pairwise_acc(preds: torch.Tensor, latents: torch.Tensor,
+                          precision="highest") -> torch.Tensor:
     """Pairwise accuracy [B] of preds [B, nv, D] against latents [nv, D].
 
     Equals ``pairwise_acc_from_dist(cosine_distances(preds, latents))``
     without the distance matrix.
     """
     name = "streamed_pairwise_acc"
+    precision = PR.resolve(precision)
     _check_shapes(name, "preds [B, nv, D] and latents [nv, D]",
                   preds.dim() == 3 and latents.dim() == 2
                   and tuple(preds.shape[1:]) == tuple(latents.shape), preds, latents)
     if not _uses_kernel(name, preds, latents):
-        return streamed_pairwise_acc_plain(preds, latents)
+        return streamed_pairwise_acc_plain(preds, latents, precision)
     b, nv, d = preds.shape
     # Bm[b, k, j] = y[j, k], shared by every vertex (batch stride 0), stored
     # [D, nv] with padded rows (a copy of nv x D floats, once per call): the
     # kernel reads it as it reads Z
     y_t = padded_empty(1, d, nv, preds.device)[0].copy_(_unit_rows(latents).mT)
-    return _count_on_card(name, preds, preds.stride(), y_t, (0, y_t.stride(0), 1), b, nv, d)
+    return _count_on_card(name, preds, y_t, (0, y_t.stride(0), 1), b, nv, d, precision)
 
 
-def streamed_acc_from_factors(Xv_b: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+def streamed_acc_from_factors(Xv_b: torch.Tensor, Z: torch.Tensor,
+                              precision="highest") -> torch.Tensor:
     """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ Z [B, K, nv]."""
     name = "streamed_acc_from_factors"
+    precision = PR.resolve(precision)
     _check_shapes(name, "Xv_b [B, nv, K] and Z [B, K, nv]",
                   Xv_b.dim() == 3 and Z.dim() == 3 and Z.shape[0] == Xv_b.shape[0]
                   and Z.shape[1] == Xv_b.shape[2] and Z.shape[2] == Xv_b.shape[1], Xv_b, Z)
     if not _uses_kernel(name, Xv_b, Z):
-        return streamed_acc_from_factors_plain(Xv_b, Z)
+        return streamed_acc_from_factors_plain(Xv_b, Z, precision)
     b, nv, k = Xv_b.shape
-    return _count_on_card(name, Xv_b, Xv_b.stride(), Z, Z.stride(), b, nv, k)
+    return _count_on_card(name, Xv_b, Z, Z.stride(), b, nv, k, precision)
 
 
-def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor,
-                          U: torch.Tensor) -> torch.Tensor:
+def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor, U: torch.Tensor,
+                          precision="highest") -> torch.Tensor:
     """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ (inv [B, K, K] @ U [B, K, nv]).
 
     On the card ``Z = inv U`` is formed by the source's own GEMM kernel into
-    a padded workspace and read back by the count kernel (one call).
+    a padded workspace and read back by the count kernel (one call), both at
+    ``precision``: at ``"default"`` inv and U are rounded for Z, and Z again
+    for the count, as the TPU kernel's two dots round them.
     """
     name = "streamed_acc_from_inv"
+    precision = PR.resolve(precision)
     _check_shapes(name, "Xv_b [B, nv, K], inv [B, K, K] and U [B, K, nv]",
                   Xv_b.dim() == 3 and inv.dim() == 3 and U.dim() == 3
                   and inv.shape[0] == U.shape[0] == Xv_b.shape[0]
                   and inv.shape[1] == inv.shape[2] == U.shape[1] == Xv_b.shape[2]
                   and U.shape[2] == Xv_b.shape[1], Xv_b, inv, U)
     if not _uses_kernel(name, Xv_b, inv, U):
-        return streamed_acc_from_inv_plain(Xv_b, inv, U)
+        return streamed_acc_from_inv_plain(Xv_b, inv, U, precision)
     b, nv, k = Xv_b.shape
-    Z = inv_times_u_on_card(inv, U)
-    return _count_on_card(name, Xv_b, Xv_b.stride(), Z, Z.stride(), b, nv, k)
+    Z = inv_times_u_on_card(inv, U, precision)
+    return _count_on_card(name, Xv_b, Z, Z.stride(), b, nv, k, precision)

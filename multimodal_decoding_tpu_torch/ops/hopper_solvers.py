@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from multimodal_decoding_tpu_torch.ops import _cuda_build
+from multimodal_decoding_tpu_torch.ops import precision as PR
 
 PANEL = 64
 MAX_PANEL = 192  # the kernel keeps a whole block in shared memory
@@ -82,12 +83,16 @@ def chol_inv_panel(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def blocked_spd_inverse(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
+def blocked_spd_inverse(A: torch.Tensor, panel: int = PANEL, precision="highest") -> torch.Tensor:
     """Batched SPD inverse ``[B, K, K] -> A^-1`` (port of the Pallas driver).
 
-    The diagonal panels are factorised and inverted by ``chol_inv_panel``;
-    everything else is batched GEMMs.
+    The diagonal panels are factorised and inverted by ``chol_inv_panel``
+    (float32 inside, as the TPU kernel); everything else is batched GEMMs at
+    ``precision`` (``ops/precision.py``).
     """
+    def mm(x, y):
+        return PR.matmul(x, y, precision)
+
     b, k = A.shape[0], A.shape[-1]
     k_pad = ((k + panel - 1) // panel) * panel
     work = A.to(torch.float32)
@@ -105,11 +110,11 @@ def blocked_spd_inverse(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
         lo = p * panel
         linv_pp = chol_inv_panel(work[:, lo:lo + panel, lo:lo + panel].contiguous())
         # L[:, lo:, lo:lo+PB] = A_work[:, lo:, lo:lo+PB] @ L_pp^-T, rows >= lo
-        l_col = work[:, :, lo:lo + panel] @ linv_pp.mT
+        l_col = mm(work[:, :, lo:lo + panel], linv_pp.mT)
         l_col = torch.where((r >= lo)[None, :, None], l_col, 0.0)
         # trailing update, only on indices past this panel
         trail = ((r >= lo + panel)[:, None] & (r >= lo + panel)[None, :]).to(work.dtype)
-        work = work - (l_col @ l_col.mT) * trail
+        work = work - mm(l_col, l_col.mT) * trail
         l_cols.append(l_col)
         d_invs.append(linv_pp)
     L = torch.cat(l_cols, dim=-1)
@@ -121,7 +126,7 @@ def blocked_spd_inverse(A: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
     for p in range(n_panels):
         lo = p * panel
         l_row = torch.where((r < lo)[None, None, :], L[:, lo:lo + panel, :], 0.0)
-        rhs = eye[lo:lo + panel][None] - l_row @ M
-        M[:, lo:lo + panel, :] = d_invs[p] @ rhs
-    inv = M.mT @ M
+        rhs = eye[lo:lo + panel][None] - mm(l_row, M)
+        M[:, lo:lo + panel, :] = mm(d_invs[p], rhs)
+    inv = mm(M.mT, M)
     return inv[:, :k, :k]

@@ -22,6 +22,7 @@ from multimodal_decoding_tpu_torch.config import (
     METRIC_IMAGES_DIFF_MOD_AGNO_MOD_SPECIFIC,
 )
 from multimodal_decoding_tpu_torch.device import as_float32
+from multimodal_decoding_tpu_torch.ops.precision import matmul as _matmul
 
 # ---------------------------------------------------------------------------
 # Metric name constants (reference: eval.py:9-79)
@@ -141,11 +142,16 @@ def fit_standardizer(x: torch.Tensor, axis: int = -2):
     return mean, scale
 
 
-def cosine_distances(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
-    """Cosine distance matrix ``1 - <p, l> / (|p||l|)`` (cdist 'cosine')."""
+def cosine_distances(preds: torch.Tensor, latents: torch.Tensor,
+                     precision="highest") -> torch.Tensor:
+    """Cosine distance matrix ``1 - <p, l> / (|p||l|)`` (cdist 'cosine').
+
+    ``precision`` (``ops/precision.py``) is the product's; the CV selection
+    path passes a cheaper one.
+    """
     p = preds / torch.linalg.vector_norm(preds, dim=-1, keepdim=True)
     l = latents / torch.linalg.vector_norm(latents, dim=-1, keepdim=True)
-    return 1.0 - p @ l.mT
+    return 1.0 - _matmul(p, l.mT, precision)
 
 
 def euclidean_distances(preds: torch.Tensor, latents: torch.Tensor) -> torch.Tensor:
@@ -177,14 +183,15 @@ def pairwise_acc_from_dist(dist: torch.Tensor) -> torch.Tensor:
     return count_ratio(corrects, n * m - min(n, m))
 
 
-def pairwise_acc_scale_invariant(predictions: torch.Tensor,
-                                 latents_normalized: torch.Tensor) -> torch.Tensor:
+def pairwise_acc_scale_invariant(predictions: torch.Tensor, latents_normalized: torch.Tensor,
+                                 precision="highest") -> torch.Tensor:
     """Cosine pairwise accuracy without normalising the predictions.
 
     ``dist_ii < dist_ij <=> sim_ij < sim_ii`` for ``sim = P Y^T`` with unit
     latent rows: every entry of row i shares the factor ``1/|p_i|``.
+    ``sim`` is float32, its product at ``precision``.
     """
-    return pairwise_acc_from_sim(predictions @ latents_normalized.mT)
+    return pairwise_acc_from_sim(_matmul(predictions, latents_normalized.mT, precision))
 
 
 def pairwise_acc_from_sim(sim: torch.Tensor) -> torch.Tensor:

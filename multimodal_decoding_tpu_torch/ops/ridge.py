@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from multimodal_decoding_tpu_torch.device import as_float32, resolve_device, synchronize
+from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.metrics import pairwise_accuracy
 from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse
 from multimodal_decoding_tpu_torch.parallel.multihost import host_shard_bounds
@@ -200,13 +201,15 @@ def dual_ridge_predict(K_query, dual_coef, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _cv_fold_scores(K_tt, K_vt, Y_tr, Y_va, alphas, scorer=None, solver=None):
+def _cv_fold_scores(K_tt, K_vt, Y_tr, Y_va, alphas, scorer=None, solver=None,
+                    precision="highest"):
     """Scores for all ``alphas`` (floats) on one fold, ``[n_alphas]``.
 
     ``solver=None`` (strict): a Cholesky solve per alpha, one alpha at a
     time.  A solver name inverts all ``[A, n_tr, n_tr]`` systems in one
-    batched ``spd_inverse`` call, then applies each inverse with a GEMM;
-    selection grade only, the refit in ``ridge_cv_dual`` never changes.
+    batched ``spd_inverse`` call, then applies each inverse with two GEMMs,
+    all at ``precision``; selection grade only, the refit in
+    ``ridge_cv_dual`` never changes.
     """
     score = pairwise_accuracy if scorer is None else scorer
     device = K_tt.device
@@ -215,11 +218,15 @@ def _cv_fold_scores(K_tt, K_vt, Y_tr, Y_va, alphas, scorer=None, solver=None):
                             for a in alphas])
     eye = torch.eye(K_tt.shape[-1], dtype=K_tt.dtype, device=device)
     a = torch.as_tensor(alphas, dtype=torch.float32, device=device)
-    inv_all = spd_inverse(K_tt[None] + a[:, None, None] * eye, method=solver)
-    return torch.stack([score(Y_va, K_vt @ (inv @ Y_tr)) for inv in inv_all])
+    inv_all = spd_inverse(K_tt[None] + a[:, None, None] * eye, method=solver,
+                          precision=precision)
+    return torch.stack([
+        score(Y_va, PR.matmul(K_vt, PR.matmul(inv, Y_tr, precision), precision))
+        for inv in inv_all])
 
 
-def _cv_fold_scores_sliced(K, Y, lo: int, hi: int, alphas, scorer=None, solver=None):
+def _cv_fold_scores_sliced(K, Y, lo: int, hi: int, alphas, scorer=None, solver=None,
+                           precision="highest"):
     """_cv_fold_scores on the fold ``[lo, hi)``, its blocks assembled from slices.
 
     KFold validation folds are contiguous ranges, so the train blocks are
@@ -229,7 +236,8 @@ def _cv_fold_scores_sliced(K, Y, lo: int, hi: int, alphas, scorer=None, solver=N
                       torch.cat([K[hi:, :lo], K[hi:, hi:]], dim=1)], dim=0)
     K_vt = torch.cat([K[lo:hi, :lo], K[lo:hi, hi:]], dim=1)
     Y_tr = torch.cat([Y[:lo], Y[hi:]], dim=0)
-    return _cv_fold_scores(K_tt, K_vt, Y_tr, Y[lo:hi], alphas, scorer=scorer, solver=solver)
+    return _cv_fold_scores(K_tt, K_vt, Y_tr, Y[lo:hi], alphas, scorer=scorer, solver=solver,
+                           precision=precision)
 
 
 def ridge_cv_dual(
@@ -241,6 +249,7 @@ def ridge_cv_dual(
     cv_solver: str | None = None,
     device=None,
     timings: dict | None = None,
+    cv_precision=None,
 ):
     """GridSearchCV(Ridge, scoring=pairwise_accuracy, cv=KFold) on the gram.
 
@@ -248,13 +257,17 @@ def ridge_cv_dual(
     dual_coef for the best alpha, a tensor on ``device``).  sklearn
     semantics: unshuffled consecutive folds, unweighted mean of fold scores,
     refit on the full train set; the tie-break is ``first_argmax_with_tol``.
-    ``cv_solver``: the selection solver (see _cv_fold_scores); the refit is
-    always the strict Cholesky solve.  ``timings``: if a dict, its
+    ``cv_solver``: the selection solver (see _cv_fold_scores), whose
+    products run at ``cv_precision`` (``None``: the shipped
+    ``precision.default_cv_precision(device)``); the refit is always the
+    strict Cholesky solve.  ``timings``: if a dict, its
     ``cv_s`` and ``refit_s`` get the seconds of the two stages, each ended
     by a device synchronisation.  ``K`` is the whole gram (replicated under
     a feature mesh): there is nothing to shard here.
     """
     device = resolve_device(device)
+    if cv_precision is None:
+        cv_precision = PR.default_cv_precision(device)
     t0 = time.time()
     K, Y = as_float32(K, device), as_float32(Y, device)
     alphas = [float(a) for a in alphas]
@@ -262,15 +275,17 @@ def ridge_cv_dual(
     for train_idx, val_idx in kfold_indices(K.shape[0], n_splits):
         lo, hi = int(val_idx[0]), int(val_idx[-1]) + 1
         if np.array_equal(val_idx, np.arange(lo, hi)):
-            fold_scores.append(_cv_fold_scores_sliced(K, Y, lo, hi, alphas,
-                                                      scorer=scorer, solver=cv_solver))
+            fold_scores.append(_cv_fold_scores_sliced(K, Y, lo, hi, alphas, scorer=scorer,
+                                                      solver=cv_solver,
+                                                      precision=cv_precision))
         else:
             # gather fallback for non-contiguous folds (a bare assert would
             # vanish under python -O and silently slice wrong rows)
             tr = torch.as_tensor(np.ascontiguousarray(train_idx), device=device)
             va = torch.as_tensor(np.ascontiguousarray(val_idx), device=device)
             fold_scores.append(_cv_fold_scores(K[tr][:, tr], K[va][:, tr], Y[tr], Y[va],
-                                               alphas, scorer=scorer, solver=cv_solver))
+                                               alphas, scorer=scorer, solver=cv_solver,
+                                               precision=cv_precision))
     mean_scores = torch.mean(torch.stack(fold_scores), dim=0)
     best_idx = int(first_argmax_with_tol(mean_scores))
     mean_scores = mean_scores.cpu().numpy()

@@ -83,20 +83,31 @@ def sharded_searchlight_step(mesh, layout: TestLayout, n_train: int, n_test: int
 
 
 def sharded_searchlight_cv_step(mesh, layout: TestLayout, n_train: int, n_test: int,
-                                alphas, cv_solver: str | None = None):
+                                alphas, cv_solver: str | None = None, cv_dtype="shipped",
+                                cv_precision=None):
     """A vertex-sharded alpha-CV searchlight block step (the shipped config).
 
-    ``cv_solver=None`` resolves through ``decoding.searchlight
-    .default_cv_solver(mesh.device)``: ``"schur-pallas"`` on CUDA, so each
-    rank's CV base blocks launch the hand-written panel kernel.  The refit is
-    the strict Cholesky solve.  The JAX step's ``cv_dtype`` (bf16 selection
-    storage) is ROADMAP A15; selection here is float32.  Returns fn as
-    ``sharded_searchlight_step`` does, with ``best_alpha`` among the maps.
+    Selection runs the shipped settings of ``mesh.device`` by default, as the
+    production driver does: ``cv_solver=None`` resolves through
+    ``decoding.searchlight.default_cv_solver`` (``"schur-pallas"`` on CUDA,
+    so each rank's CV base blocks launch the hand-written panel kernel),
+    ``cv_dtype="shipped"`` through ``default_cv_dtype`` and
+    ``cv_precision=None`` through ``default_cv_precision``.  The refit is the
+    strict Cholesky solve.  Returns fn as ``sharded_searchlight_step`` does,
+    with ``best_alpha`` among the maps.
     """
-    from multimodal_decoding_tpu_torch.decoding.searchlight import default_cv_solver
+    from multimodal_decoding_tpu_torch.decoding.searchlight import (
+        default_cv_dtype,
+        default_cv_precision,
+        default_cv_solver,
+    )
 
     if cv_solver is None:
         cv_solver = default_cv_solver(mesh.device)
+    if cv_dtype == "shipped":
+        cv_dtype = default_cv_dtype(mesh.device)
+    if cv_precision is None:
+        cv_precision = default_cv_precision(mesh.device)
     alphas_d = torch.as_tensor(alphas, dtype=torch.float32, device=mesh.device)
 
     def fn(X_all, Y_train, Y_test, Y_imag, idx):
@@ -104,7 +115,8 @@ def sharded_searchlight_cv_step(mesh, layout: TestLayout, n_train: int, n_test: 
             as_float32(X_all, mesh.device), as_float32(Y_train, mesh.device),
             as_float32(Y_test, mesh.device), as_float32(Y_imag, mesh.device),
             shard_rows_from_host(idx, mesh).long(), None, alphas_d,
-            layout=layout, n_train=n_train, n_test=n_test, cv_solver=cv_solver)
+            layout=layout, n_train=n_train, n_test=n_test, cv_solver=cv_solver,
+            cv_precision=cv_precision, cv_dtype=cv_dtype)
         return _gather_scores(scores, mesh)
 
     return fn
@@ -138,13 +150,18 @@ def multichip_training_step(mesh_v, mesh_f):
     ``np.random.RandomState(0)`` in the JAX step's order: (1) the
     feature-sharded whole-brain gram + dual ridge fit + prediction, (2) the
     vertex-sharded searchlight block fed by per-rank row shards, (3) the
-    vertex-sharded alpha-CV block at the shipped selection settings (the JAX
-    step's (3b), bf16 selection storage, is ROADMAP A15), (4) the
+    vertex-sharded alpha-CV block at the shipped selection settings, (3b) the
+    same block at the TPU's shipped combination, ``"schur-pallas"`` with
+    bf16 selection storage at ``"default"`` (the ``cvtpu_*`` maps), (4) the
     permutation-sharded group-null t-maps with per-rank null ingestion.
     Returns (whole-brain predictions, {metric: [v] scores}) as numpy, the
     same on every rank.
     """
-    from multimodal_decoding_tpu_torch.decoding.searchlight import default_cv_solver
+    from multimodal_decoding_tpu_torch.decoding.searchlight import (
+        default_cv_dtype,
+        default_cv_precision,
+        default_cv_solver,
+    )
     from multimodal_decoding_tpu_torch.ops.stats import group_permutations
 
     n_dev = mesh_v.size
@@ -185,12 +202,22 @@ def multichip_training_step(mesh_v, mesh_f):
     scores = step(X_all_rep, Y_train, Y_test, Y_imag, idx)
 
     # (3) vertex-sharded alpha-CV block at the shipped selection settings
-    print(f"multichip CV step shipped config: cv_solver={default_cv_solver(mesh_v.device)}, "
-          "cv_dtype=None")
+    dev = mesh_v.device
+    print(f"multichip CV step shipped config: cv_solver={default_cv_solver(dev)}, "
+          f"cv_dtype={default_cv_dtype(dev)}, cv_precision={default_cv_precision(dev)}")
     cv_step = sharded_searchlight_cv_step(mesh_v, layout, n_train, n_test,
                                           alphas=[1e-1, 1e1, 1e3])
     cv_scores = cv_step(X_all_rep, Y_train, Y_test, Y_imag, idx)
     scores = dict(scores, **{f"cv_{m}": s for m, s in cv_scores.items()})
+
+    # (3b) the TPU's shipped combination explicitly: schur-pallas with bf16
+    # selection storage at one bf16 pass, so a dry run certifies it on any
+    # device (on the CPU the panel kernel's plain version runs)
+    cv_step_tpu_cfg = sharded_searchlight_cv_step(
+        mesh_v, layout, n_train, n_test, alphas=[1e-1, 1e1, 1e3],
+        cv_solver="schur-pallas", cv_dtype=torch.bfloat16, cv_precision="default")
+    cv_scores_tpu_cfg = cv_step_tpu_cfg(X_all_rep, Y_train, Y_test, Y_imag, idx)
+    scores = dict(scores, **{f"cvtpu_{m}": s for m, s in cv_scores_tpu_cfg.items()})
 
     # (4) permutation-sharded group-null t-maps with per-rank null ingestion
     n_subj, p_within = 4, 6

@@ -161,14 +161,18 @@ def streamed_scaler_fit(reader: NpzMemberReader, keep: np.ndarray,
 
 
 def streamed_x_all_device(readers, keep: np.ndarray, mean32: np.ndarray, scale32: np.ndarray,
-                          mesh=None, device=None, chunk_rows: int | None = None) -> torch.Tensor:
-    """Stream the standardised rows of every split into one float32
-    [sum(n_rows), V_kept] tensor on the device (the runner's ``X_all``).
+                          mesh=None, device=None, chunk_rows: int | None = None,
+                          dtype=torch.float32) -> torch.Tensor:
+    """Stream the standardised rows of every split into one
+    [sum(n_rows), V_kept] tensor of ``dtype`` on the device (the runner's
+    ``X_all``).
 
     ``readers``: NpzMemberReader of (train, test, imagery) in the eager
     concatenation order.  The device is ``mesh.device`` with a mesh (each
     rank streams its own replica), else ``resolve_device(device)``.  The
-    result equals the eager path element for element.
+    rows are standardised in float32 and then cast (``torch.bfloat16``: fast
+    math's storage, rounded to nearest even on the device), so the result
+    equals the eager float32 path cast to ``dtype``, element for element.
     """
     device = mesh.device if mesh is not None else resolve_device(device)
     keep = np.asarray(keep, bool)
@@ -179,8 +183,7 @@ def streamed_x_all_device(readers, keep: np.ndarray, mean32: np.ndarray, scale32
     if any(r.dtype != np.float32 for r in readers):
         raise ValueError("streaming ingestion needs float32 betas caches")
     chunk_rows = chunk_rows or default_chunk_rows(n_cols)
-    X = torch.empty((sum(r.n_rows for r in readers), n_keep), dtype=torch.float32,
-                    device=device)
+    X = torch.empty((sum(r.n_rows for r in readers), n_keep), dtype=dtype, device=device)
 
     on_cuda = device.type == "cuda"
     # two host buffers, pinned on CUDA; on the CPU the copy is synchronous
@@ -200,7 +203,11 @@ def streamed_x_all_device(readers, keep: np.ndarray, mean32: np.ndarray, scale32
             k = np.compress(keep, view, axis=1, out=host.numpy())
             k -= mean32
             k /= scale32
-            X[offset + row0:offset + row0 + rows].copy_(host, non_blocking=on_cuda)
+            rows_x = X[offset + row0:offset + row0 + rows]
+            if dtype == torch.float32:
+                rows_x.copy_(host, non_blocking=on_cuda)
+            else:  # the float32 chunk crosses as it is and is cast on the device
+                rows_x.copy_(host.to(device, non_blocking=on_cuda))
             if on_cuda:
                 copied[slot] = torch.cuda.Event()
                 copied[slot].record(torch.cuda.current_stream(device))

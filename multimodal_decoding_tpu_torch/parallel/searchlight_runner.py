@@ -112,6 +112,9 @@ def run_searchlight(
     block_size: int | None = None,
     mesh=None,
     device=None,
+    dtype=torch.float32,
+    precision="highest",
+    cv_precision=None,
     cv_solver: str | None = None,
     cv_scorer: str = "xla",
     cv_dtype=None,
@@ -140,6 +143,11 @@ def run_searchlight(
     already placed the standardised [n_rows, V'] matrix on the device
     (``parallel/ingest.py``); X_train/X_test/X_imag may then be None and no
     host concatenation happens.
+
+    ``dtype``: the storage of the device ``X_all`` built here
+    (``torch.bfloat16`` under fast math; a given ``x_all_device`` keeps its
+    own).  ``precision``, ``cv_precision``, ``cv_solver``, ``cv_scorer`` and
+    ``cv_dtype`` pass through to the engine's block steps.
     """
     device = mesh.device if mesh is not None else resolve_device(device)
     n_ranks = mesh.size if mesh is not None else 1
@@ -157,7 +165,7 @@ def run_searchlight(
         n_train, n_test = len(X_train), len(X_test)
         X_all = np.concatenate([X_train, X_test, X_imag]).astype(np.float32)
         n_rows = X_all.shape[0]
-        X_all_d = torch.as_tensor(X_all, device=device)
+        X_all_d = torch.as_tensor(X_all, device=device).to(dtype)  # cast on the device
         del X_all
     v_total, k = adjacency.shape
 
@@ -244,8 +252,9 @@ def run_searchlight(
         )
         os.replace(tmp, checkpoint_path)
 
-    common = dict(layout=layout, n_train=n_train, n_test=n_test)
-    cv_kw = dict(cv_solver=cv_solver, cv_scorer=cv_scorer, cv_dtype=cv_dtype)
+    common = dict(layout=layout, n_train=n_train, n_test=n_test, precision=precision)
+    cv_kw = dict(cv_precision=cv_precision, cv_solver=cv_solver, cv_scorer=cv_scorer,
+                 cv_dtype=cv_dtype)
     t0 = time.time()
     for b in range(n_blocks):
         if b <= ckpt_done:

@@ -41,9 +41,12 @@ def test_dryrun_multichip_on_two_gloo_ranks_matches_jax(capsys):
     ref_preds, ref_scores = multichip_training_step(Mesh(devices, ("v",)),
                                                     Mesh(devices, ("f",)))
     np.testing.assert_allclose(preds, np.asarray(ref_preds), rtol=0, atol=1e-4)
-    # every score map of the JAX step but (3b), bf16 selection storage (A15)
-    assert sorted(scores) == sorted(m for m in ref_scores if not m.startswith("cvtpu_"))
+    # every score map of the JAX step, the (3b) cvtpu_* maps of bf16
+    # selection storage among them
+    assert sorted(scores) == sorted(ref_scores)
+    assert any(m.startswith("cvtpu_") for m in scores)
     np.testing.assert_array_equal(scores["cv_best_alpha"], ref_scores["cv_best_alpha"])
+    np.testing.assert_array_equal(scores["cvtpu_best_alpha"], ref_scores["cvtpu_best_alpha"])
     for m, v in scores.items():
         np.testing.assert_allclose(v, np.asarray(ref_scores[m]), rtol=0, atol=1e-4,
                                    err_msg=m)

@@ -207,7 +207,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
         P.run(P.PermutationConfig(out_dir=str(tmp_path / "perm")))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ST.run_study(ST.StudyConfig(betas_dir=str(tmp_path), meshes={}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # fast math as well
         ST.run_study(ST.StudyConfig(betas_dir=str(tmp_path), meshes={}, fast_math=True))
     perm_argv = ["--n-neighbors", "3", "--mesh-dir", str(tmp_path / "no_meshes")]
     study_argv = ["--betas-dir", str(tmp_path), "--mesh-dir", str(tmp_path / "no_meshes")]

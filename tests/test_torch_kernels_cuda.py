@@ -17,6 +17,7 @@ import torch
 
 from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
 from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+from multimodal_decoding_tpu_torch.ops import precision as PR
 
 pytestmark = pytest.mark.cuda
 
@@ -294,3 +295,120 @@ def test_streamed_gram_and_query_kernels_on_the_card(cuda):
     x64 = X.astype(np.float64)
     for got, ref in ((K, x64 @ x64.T), (Kq, Xq.astype(np.float64) @ x64.T)):
         assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core variants ("default", "high") and the bf16 first operand
+# ---------------------------------------------------------------------------
+
+
+def _precision_inputs(name, kind, b, nv, k, device):
+    """Inputs for the precision variants.  Integer inputs lie in -16..16,
+    which bf16 holds exactly, so every variant counts exactly: latent rows
+    have 16, 4 or 1 entries of +-1 (unit rows of +-1/4, +-1/2, +-1), and the
+    inverses are signed diagonals of +-1, +-2, so Z = inv U stays in bf16's
+    integers."""
+    gen = torch.Generator(device=device).manual_seed(b * 7919 + nv * 31 + k)
+
+    def draw(*shape):
+        if kind == "integer":
+            return torch.randint(-16, 17, shape, generator=gen, device=device).float()
+        return torch.randn(shape, generator=gen, device=device)
+
+    if name == "streamed_pairwise_acc":
+        if kind == "integer":
+            n_on = 16 if k >= 16 else (4 if k >= 4 else 1)
+            top = torch.rand((nv, k), generator=gen, device=device).topk(n_on, dim=-1).indices
+            signs = torch.randint(0, 2, top.shape, generator=gen, device=device).float() * 2 - 1
+            latents = torch.zeros((nv, k), device=device).scatter_(1, top, signs)
+        else:
+            latents = draw(nv, k)
+        return draw(b, nv, k), latents
+    Xv_b = draw(nv, b, k).permute(1, 0, 2)  # the main path's transposed view
+    Z = HM.padded_empty(b, k, nv, device).copy_(draw(b, k, nv))
+    if name == "streamed_acc_from_inv":
+        if kind == "integer":
+            vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=device)
+            inv = torch.diag_embed(vals[torch.randint(0, 4, (b, k), generator=gen,
+                                                      device=device)])
+        else:
+            inv = draw(b, k, k) / k
+        return Xv_b, inv, Z
+    return Xv_b, Z
+
+
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["highest", "default", "high"])
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+@pytest.mark.parametrize("b,nv,k", [
+    (1, 1, 1), (2, 7, 5), (2, 129, 31), (3, 257, 33), (2, 256, 32),
+    (4, 257, 750), (128, 1639, 750), (128, 1639, 1024)])
+@pytest.mark.parametrize("name", HM.KERNELS)
+def test_streamed_variants_match_plain(cuda, name, b, nv, k, kind, precision, a_dtype):
+    """Each variant against its plain version at its precision: counts equal
+    on integer inputs; on Gaussian ones within ACC_TOL, or two flipped
+    near-ties where one flip, 1/(nv^2 - nv), exceeds it (the tensor cores sum
+    in another order than cuBLAS)."""
+    args = list(_precision_inputs(name, kind, b, nv, k, cuda))
+    args[0] = args[0].to(a_dtype)
+    before = dict(HM.launches_by_precision[name])
+    got = getattr(HM, name)(*args, precision=precision)
+    torch.cuda.synchronize()
+    after = HM.launches_by_precision[name]
+    assert after[precision] == before[precision] + 1
+    assert all(after[p] == before[p] for p in after if p != precision)
+    ref = getattr(HM, name + "_plain")(*args, precision=precision)
+    if kind == "integer":
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    else:
+        tol = max(ACC_TOL, 2.0 / max(nv * nv - nv, 1))
+        torch.testing.assert_close(got, ref, rtol=0, atol=tol, equal_nan=True)
+
+
+@pytest.mark.parametrize("kd", [31, 32, 33, 750])
+def test_bf16_first_operand_every_load_width(cuda, kd):
+    """A bf16 first operand is loaded 16, 8, 4 or 2 bytes a thread by its
+    vertex's alignment (Xv_b's vertex stride is kd x 2 bytes): every width,
+    and a copy made where its k axis is not contiguous, counts as the float32
+    operand holding the same values."""
+    gen = torch.Generator(device=cuda).manual_seed(kd)
+    b, nv = 8, 257
+    Xv_b = _ints(gen, nv, b, kd).permute(1, 0, 2).bfloat16()
+    Z = HM.padded_empty(b, kd, nv, cuda).copy_(_ints(gen, b, kd, nv))
+    for precision in ("highest", "default", "high"):
+        ref = HM.streamed_acc_from_factors(Xv_b.float(), Z, precision)
+        for x in (Xv_b, Xv_b.contiguous(), Xv_b.mT.contiguous().mT):
+            assert torch.equal(HM.streamed_acc_from_factors(x, Z, precision), ref), precision
+
+
+def test_store_gemm_rounds_as_the_tpu_dot(cuda):
+    """streamed_acc_from_inv's Z GEMM at "default" is the product of the
+    bf16-rounded inv and U with float32 sums, written unrounded."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, k, nv = 4, 750, 300
+    inv = torch.randn((b, k, k), generator=gen, device=cuda) / k
+    U = HM.padded_empty(b, k, nv, cuda).copy_(torch.randn((b, k, nv), generator=gen,
+                                                          device=cuda))
+    for precision in ("default", "high"):
+        Z = HM.inv_times_u_on_card(inv, U, precision)
+        ref = PR.matmul(inv, U, precision)
+        scale = (inv.abs() @ U.abs()).max()
+        assert float((Z - ref).abs().max()) <= 4 * k * 2.0 ** -24 * float(scale)
+
+
+@pytest.mark.parametrize("a_shape,b_shape", [
+    ((64, 48), (48, 16)), ((3, 64, 48), (48, 16)), ((64, 48), (3, 48, 16)),
+    ((3, 64, 48), (3, 48, 16)), ((2, 1, 64, 48), (3, 48, 16))])
+def test_precision_matmul_broadcasts_through_bf16_gemms(cuda, a_shape, b_shape):
+    """Rounded products take cuBLAS's bf16 GEMM with float32 output at every
+    broadcast shape: torch.matmul's shape, exact products, float32 sums, and
+    TF32 still off."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(a_shape, generator=gen, device=cuda)
+    b = torch.randn(b_shape, generator=gen, device=cuda)
+    out = PR.matmul(a, b, "default")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ref = PR.round_bf16(a).double() @ PR.round_bf16(b).double()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert float((out.double() - ref).abs().max()) <= 2 * 48 * 2.0 ** -24 * float(
+        (a.abs() @ b.abs()).max())

@@ -367,12 +367,13 @@ def test_unported_run_options_raise(dataset, tmp_path, monkeypatch):
     base = dict(betas_dir=os.path.join(dataset["betas_dir"], "surface"), mesh_coords=coords,
                 model=dataset["model"], subjects=["sub-01"], hemis=["left"], n_neighbors=5,
                 out_dir=str(tmp_path / "o"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        TS.run(TS.SearchlightConfig(**base, fast_math=True))
     # streamed ingestion reads the betas npz cache, which no eager run has
     # written yet here
     with pytest.raises(FileNotFoundError, match="stream_ingest=on"):
         TS.run(TS.SearchlightConfig(**base, stream_ingest="on"))
+    # fast math is ported: it runs (its parity is tests/test_torch_fast_math.py's)
+    (path,) = TS.run(TS.SearchlightConfig(**base, fast_math=True, progress=False))
+    assert os.path.isfile(path)
     monkeypatch.setenv("MMD_STREAM_INGEST", "sometimes")
     with pytest.raises(ValueError, match="stream_ingest"):
         TS.run(TS.SearchlightConfig(**base))

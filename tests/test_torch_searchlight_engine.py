@@ -337,12 +337,19 @@ def test_rank_counts_match_jax():
 
 
 def test_unported_options_raise(problem):
+    """The JAX package's selection options run in the port now (their parity
+    is tests/test_torch_precision.py's); what still raises is what the JAX
+    package rejects too."""
     t = _torch_inputs(problem)
     X = TE.gather_patches(t["X_all"], t["idx"])[:N_TRAIN]
     for kw in ({"cv_dtype": torch.bfloat16}, {"cv_unroll": True},
                {"cv_alpha_batch": True}):
-        with pytest.raises(ValueError, match="not ported"):
-            TE.fit_block_cv(X, t["Y_train"], t["alphas"], **kw)
+        _, best, scores = TE.fit_block_cv(X, t["Y_train"], t["alphas"], **kw)
+        assert best.shape == (B,) and scores.shape == (B, len(ALPHAS))
+    with pytest.raises(ValueError, match="must divide"):
+        TE.fit_block_cv(X, t["Y_train"], t["alphas"], cv_alpha_batch=2)
+    with pytest.raises(ValueError, match="requires cv_scorer='xla'"):
+        TE.fit_block_cv(X, t["Y_train"], t["alphas"], cv_alpha_batch=True, cv_scorer="pallas")
     with pytest.raises(ValueError, match="unknown cv_scorer"):
         TE.fit_block_cv(X, t["Y_train"], t["alphas"], cv_scorer="fused-bf16")
     with pytest.raises(ValueError, match="unknown null-gather mode"):

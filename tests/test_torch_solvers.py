@@ -94,10 +94,17 @@ def test_pallas_method_solves_at_production_alphas():
 
 @pytest.mark.parametrize("method", ["schur-cb16", "schur-cb16-ns", "tri-inv"])
 def test_unported_methods_raise(method):
+    """The JAX package's bf16 and triangular-inverse methods are ported now:
+    they solve (within the JAX bands of tests/test_solvers.py:59-60) and
+    invert, and only a name neither package knows raises."""
     A = torch.as_tensor(_spd(5, 1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        TS.spd_solve(A, A, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        TS.spd_inverse(A, method=method)
+    B = torch.eye(8)[None]
+    inv = TS.spd_inverse(A, method=method)
+    tol = {"schur-cb16": 2e-2, "schur-cb16-ns": 2e-4, "tri-inv": 5e-5}[method]
+    ref = torch.linalg.inv(A.double())
+    assert _rel(inv, ref) <= tol
+    assert _rel(TS.spd_solve(A, B, method=method), ref) <= tol
     with pytest.raises(ValueError, match="unknown"):
         TS.spd_solve(A, A, method="qr")
+    with pytest.raises(ValueError, match="unknown"):
+        TS.spd_inverse(A, method="qr")
