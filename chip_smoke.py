@@ -9,7 +9,10 @@ Phases, each printing one JSON line with its seconds:
 
 1. build   - compile every source under csrc/ with nvcc, one process each,
              all started together; one {"ptxas": [...]} line gives each
-             kernel's registers, spills and static shared memory.
+             kernel's registers, spills and static shared memory, and one
+             {"sass_hgmma": {...}} line each kernel's HGMMA (wgmma)
+             instructions in cuobjdump's SASS: every tensor-core
+             instantiation must have some.
 2. kernel  - each kernel against its plain PyTorch version on the card at the
              main path's shapes: max error, CUDA-event median times of the
              kernel, the plain version and one library yardstick (and their
@@ -54,12 +57,17 @@ Phases, each printing one JSON line with its seconds:
 7. precision - the TPU's reduced-precision selection path at full width (the
              gate's problem: N=8192, 140 test, 3 imagery, K=750, D=1024, B=128,
              6 alphas x 5 folds, 100 shuffles): each streamed-count kernel at
-             "default" (one bf16 pass on the tensor cores) and "high" (bf16 x
-             3), with float32 and bf16 first operands, against its plain
-             version at that precision (counts equal on integer inputs in
-             -16..16, accuracies within 1e-5 on Gaussian ones; CUDA-event ms,
-             the bf16 bound at 989 TFLOP/s, the plain version's ms and a
-             library yardstick, one bf16 cuBLAS product with float32 output);
+             "default" (one bf16 pass on the tensor cores: wgmma on bf16
+             planes) and "high" (bf16 x 3), with float32 and bf16 first
+             operands (a bf16 Xv_b in the engine's padded rows, loaded by
+             tensor map), against its plain version at that
+             precision (counts equal on integer inputs in -16..16,
+             accuracies within 1e-5 on Gaussian ones; CUDA-event ms, the
+             bf16 bound at 989 TFLOP/s, the plain version's ms and a library
+             yardstick, one bf16 cuBLAS product with float32 output; the
+             rounding into planes, B4's Z GEMM and the count timed apart;
+             the rounding kernel bit for bit against its plain version on
+             every operand the wrapper rounds, at these shapes);
              "schur-cb16", "schur-cb16-ns" and "tri-inv" at [128, 750] against
              Cholesky over the 6 production alphas within the JAX package's
              bands (2e-2, 2e-4, 5e-5 at "highest"; "default" printed); the
@@ -76,7 +84,10 @@ Phases, each printing one JSON line with its seconds:
              each map's mean |final score - phase cli's| <= 0.02, vertices/s
              and alpha agreement printed; ridge_cv_dual at
              "default" on phase wb_gate's 16 problems (agreement with their
-             strict alphas).  It needs phases cli and wb_gate before it.
+             strict alphas); last, the tensor-core edge cases: nv 1/64/65/129
+             x depth 16/17/750 (and D = 1024) at both precisions for each
+             first-operand layout, and the rounding kernel on ragged views.
+             It needs phases cli and wb_gate before it.
 8. wb      - one whole-brain decode at production scale: N=8192 train, 140
              test, 3 imagery, V=327,684 (both fsaverage7 hemispheres), D=1024,
              6 alphas x 5 folds, from host numpy betas (10.7 GB) streamed into
@@ -156,8 +167,9 @@ Phases, each printing one JSON line with its seconds:
              (against float64 and scipy.ndimage) and motion energy on 100 of
              96 x 96 (against float64); no hand-written kernel runs on it.
 
-On request, ``--phases build,profile [--scorer fused-pallas]`` breaks one
-main-path block step down by kernel (torch.profiler), and ``--phases
+On request, ``--phases build,profile [--scorer fused-pallas] [--precision
+default]`` breaks one main-path block step down by kernel (torch.profiler;
+at default or high with bf16 selection storage), and ``--phases
 build,wb_profile`` does the same for the whole-brain stages: the streamed
 gram over 8 column blocks (device busy share: is the host copy in the way?),
 one fast and one strict CV at N=8192.  ``--phases flips`` draws the
@@ -175,6 +187,7 @@ the repository, it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -370,7 +383,31 @@ def phase_build() -> dict:
         raise AssertionError(f"unexpected sources {sorted(libs)}")
     # registers, spills and static shared memory of every kernel, one line
     emit({"ptxas": _cuda_build.ptxas_report()})
-    return {"libraries": {src: os.path.relpath(p, ROOT) for src, p in libs.items()}}
+    hgmma = sass_hgmma(libs["streamed_count.cu"])
+    emit({"sass_hgmma": hgmma})
+    tc = {k: n for k, n in hgmma.items() if "tc_kernel" in k}
+    if len(tc) != 5 or not all(tc.values()):
+        raise AssertionError(f"streamed_count.cu: expected 5 tc_kernel instantiations, each "
+                             f"with HGMMA in its SASS; cuobjdump shows {hgmma}")
+    return {"libraries": {src: os.path.relpath(p, ROOT) for src, p in libs.items()},
+            "tc_kernel_hgmma": tc}
+
+
+def sass_hgmma(lib: str) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each kernel of ``lib``, as
+    ``cuobjdump -sass`` lists them, by demangled kernel name."""
+    from multimodal_decoding_tpu_torch.ops import _cuda_build
+
+    tool = os.path.join(os.path.dirname(_cuda_build._nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True)
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return dict(zip(_cuda_build._demangle(list(counts)), counts.values()))
 
 
 def phase_kernel() -> dict:
@@ -775,9 +812,10 @@ def phase_wb_profile() -> dict:
     return out
 
 
-def phase_profile(scorer: str = "xla") -> dict:
+def phase_profile(scorer: str = "xla", precision: str = "highest") -> dict:
     """Where one main-path block step's device time goes (torch.profiler),
-    with the CV fold scorer ``scorer``."""
+    with the CV fold scorer ``scorer`` at ``precision`` (``"default"`` and
+    ``"high"`` with bf16 selection storage, as phase precision runs them)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -796,10 +834,14 @@ def phase_profile(scorer: str = "xla") -> dict:
     alphas = torch.as_tensor(ALPHAS, dtype=torch.float32, device=DEVICE)
     layout = E.TestLayout.from_stim_types(["caption"] * (N_TEST // 2) + ["image"] * (N_TEST // 2))
 
+    reduced = {} if precision == "highest" else {"cv_precision": precision,
+                                                 "cv_dtype": torch.bfloat16}
+
     def step():
         return E.searchlight_block_cv_with_null(
             X_all, Ytr, Yte, Yim, idx, None, alphas, shuffles, der, layout=layout,
-            n_train=N_TRAIN, n_test=N_TEST, cv_solver="schur-pallas", cv_scorer=scorer)
+            n_train=N_TRAIN, n_test=N_TEST, cv_solver="schur-pallas", cv_scorer=scorer,
+            **reduced)
 
     step()
     torch.cuda.synchronize()
@@ -819,8 +861,9 @@ def phase_profile(scorer: str = "xla") -> dict:
     device_ms = sum(r[1] for r in kernels) / 1e3
     # the port's hand-written kernels, wherever they rank
     port = [{"name": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in kernels
-            if "chol_inv_panel_kernel" in k or "tile_kernel" in k]
-    return {"cv_scorer": scorer,
+            if any(n in k for n in ("chol_inv_panel_kernel", "tile_kernel", "tc_kernel",
+                                    "split_bf16"))]
+    return {"cv_scorer": scorer, "cv_precision": precision,
             "block_wall_ms": sorted(walls)[1] * 1e3, "profiled_wall_ms": prof_wall * 1e3,
             "device_ms": device_ms, "device_busy_share": device_ms / (prof_wall * 1e3),
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in kernels[:14]],
@@ -1097,9 +1140,24 @@ def bf16_passes(precision: str, *dtypes) -> int:
     return 2 if torch.bfloat16 in dtypes else 3
 
 
+def first_operand(name: str, x, dtype):
+    """The first operand as the selection path hands it over: a bf16 Xv_b
+    in the engine's padded rows (HM.padded_copy, tma_eligible), else the
+    given layout in ``dtype``."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    if dtype == torch.bfloat16 and name != "streamed_pairwise_acc":
+        return HM.padded_copy(x.permute(1, 0, 2), dtype).permute(1, 0, 2)
+    return x.to(dtype)
+
+
 def kernel_precision_variant(name: str, precision: str) -> dict:
     """One streamed-count kernel at ``precision`` against its plain version,
-    with a float32 and a bf16 first operand, at the main path's shapes."""
+    with a float32 and a bf16 first operand, at the main path's shapes (the
+    bf16 Xv_b in the engine's padded rows, loaded by TMA), and the rounding
+    kernel on the operands the call rounds (``split_bit_equal``)."""
     import torch
 
     from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
@@ -1109,7 +1167,7 @@ def kernel_precision_variant(name: str, precision: str) -> dict:
     for a_dtype in (torch.float32, torch.bfloat16):
         key = str(a_dtype).removeprefix("torch.")
         args = list(precision_inputs(name, "integer", seed=21))
-        args[0] = args[0].to(a_dtype)
+        args[0] = first_operand(name, args[0], a_dtype)
         got, ref = kernel(*args, precision=precision), plain(*args, precision=precision)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
@@ -1118,7 +1176,7 @@ def kernel_precision_variant(name: str, precision: str) -> dict:
                                  f"{B} vertices")
         del args, got, ref
         args = list(precision_inputs(name, "gaussian", seed=22))
-        args[0] = args[0].to(a_dtype)
+        args[0] = first_operand(name, args[0], a_dtype)
         got, ref = kernel(*args, precision=precision), plain(*args, precision=precision)
         torch.cuda.synchronize()
         max_abs = float((got - ref).abs().max())
@@ -1153,13 +1211,173 @@ def kernel_precision_variant(name: str, precision: str) -> dict:
         in_bytes = sum(a.numel() * a.element_size() for a in args)
         bytes_ms = (in_bytes + B * 4) / HBM_BYTES_PER_S * 1e3
         flops_ms = flops / BF16_FLOP_PER_S * 1e3
+        if a_dtype == torch.float32:
+            out["split_bit_equal"] = split_bit_equal(name, precision, args)
         out[key] = {"max_abs_err": max_abs, "integer_counts_equal": True, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": library_ms,
                     "library_ratio": ms / library_ms, "bound_ms": max(bytes_ms, flops_ms),
                     "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-                    "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+                    "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+                    **tc_parts(name, precision, args)}
         del args, got, ref, b16
     return out
+
+
+def split_bit_equal(name: str, precision: str, args) -> dict:
+    """The rounding kernel (HM.bf16_planes) bit for bit against its plain
+    version on each float32 operand ``name``'s wrapper rounds at
+    ``precision``, at the main path's shapes and in the views the wrapper
+    hands it: the unit latents' transposed [1, D, nv] view and preds
+    (streamed_pairwise_acc), inv [B, K, K] and U (streamed_acc_from_inv's Z
+    GEMM), Z (streamed_acc_from_factors), and a float32 Xv_b (the
+    transposed [nv, B, K] view).  Raises on the first that differs."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    planes = HM.PLANES[precision]
+    if name == "streamed_pairwise_acc":
+        operands = {"latents": HM._unit_rows(args[1]).mT.unsqueeze(0), "preds": args[0]}
+    elif name == "streamed_acc_from_inv":
+        operands = {"inv": args[1], "U": args[2], "Xv_b": args[0]}
+    else:
+        operands = {"Z": args[1], "Xv_b": args[0]}
+    out = {}
+    for key, t in operands.items():
+        got, ref = HM.bf16_planes(t, planes), HM.bf16_planes_plain(t, planes)
+        torch.cuda.synchronize()
+        out[key] = {"shape": list(t.shape), "stride": list(t.stride()),
+                    "equal": bool(torch.equal(got, ref))}
+        if not out[key]["equal"]:
+            raise AssertionError(f"{name} at {precision}: bf16_planes of {key} "
+                                 f"{tuple(t.shape)} differs from its plain version at "
+                                 f"{int((got != ref).sum())} elements")
+        del got, ref
+    return out
+
+
+def tc_parts(name: str, precision: str, args) -> dict:
+    """The stages of a tensor-core call timed apart (CUDA events): the
+    rounding of float32 operands into bf16 planes (split_bf16), B4's Z GEMM
+    (tc_store) and the count (tc_count)."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    if name == "streamed_pairwise_acc":
+        return {}
+    planes = HM.PLANES[precision]
+    timed = functools.partial(cuda_time_ms, reps=10, warmup=2)
+    Xv_b = args[0]
+    nv, k = Xv_b.shape[1], Xv_b.shape[2]
+    if name == "streamed_acc_from_inv":
+        inv, U = args[1], args[2]
+        Z = HM.inv_times_u_on_card(inv, U, precision)
+        parts = {"split_inv_u_ms": timed(lambda: (HM.bf16_planes(inv, planes),
+                                                  HM.bf16_planes(U, planes))),
+                 "z_gemm_with_split_ms": timed(lambda: HM.inv_times_u_on_card(inv, U,
+                                                                              precision))}
+    else:
+        Z = HM.bf16_planes(args[1], planes)
+        parts = {"split_z_ms": timed(lambda: HM.bf16_planes(args[1], planes))}
+    parts["count_ms"] = timed(lambda: HM._count_tc(name, Xv_b, Z, False, B, nv, k, precision))
+    del Z
+    torch.cuda.synchronize()
+    return parts
+
+
+def precision_edge_cases() -> dict:
+    """The tensor-core variants at the edges, against their plain versions on
+    the card: nv 1 / 64 / 65 / 129 (one row or column tile, one past it),
+    depth 16 / 17 / 750 (and D = 1024 for streamed_pairwise_acc), at
+    default and high, a float32 first operand (rounded into planes, TMA), a
+    bf16 one in padded rows (TMA) and the unpadded transposed view (vertex
+    strides of kd x 2 bytes, even and odd vertices off 16-byte alignment:
+    the wrapper's padded copy), Z in bf16 and in hi/lo planes.
+    Integer inputs: counts equal; Gaussian: within ACC_TOL or two flipped
+    near-ties.  Also the rounding kernel (bf16_planes) bit for bit against
+    its plain version."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    b, checked, fails = 5, 0, []
+    for name, _ in STREAMED:
+        depths = (16, 17, 750) + ((D,) if name == "streamed_pairwise_acc" else ())
+        for nv in (1, 64, 65, 129):
+            for kd in depths:
+                for kind in ("integer", "gaussian"):
+                    base = edge_inputs(name, kind, b, nv, kd, seed=nv * 131 + kd)
+                    for layout in ("float32", "bfloat16_padded", "bfloat16_view"):
+                        args = list(base)
+                        if layout == "bfloat16_padded":
+                            args[0] = first_operand(name, base[0], torch.bfloat16)
+                        elif layout == "bfloat16_view":
+                            args[0] = base[0].to(torch.bfloat16)
+                        for precision in TC_PRECISIONS:
+                            before = HM.launches_by_precision[name][precision]
+                            got = getattr(HM, name)(*args, precision=precision)
+                            torch.cuda.synchronize()
+                            ref = getattr(HM, name + "_plain")(*args, precision=precision)
+                            err = float((got - ref).nan_to_num(0.0).abs().max())
+                            tol = 0.0 if kind == "integer" else max(
+                                ACC_TOL, 2.0 / max(nv * nv - nv, 1))
+                            same_nan = torch.equal(got.isnan(), ref.isnan())
+                            launched = HM.launches_by_precision[name][precision] - before
+                            checked += 1
+                            if not (err <= tol and same_nan and launched == 1):
+                                fails.append(f"{name} {precision} {layout} {kind} nv={nv} "
+                                             f"kd={kd}: err {err:.3e} (tol {tol:.3e}), "
+                                             f"nan pattern equal {same_nan}, "
+                                             f"{launched} launches")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn((3, 129, 1639), generator=gen, device=DEVICE) * 1e3
+    for view in (x, x.mT, x[..., ::3]):
+        for planes in (1, 2):
+            got, ref = HM.bf16_planes(view, planes), HM.bf16_planes_plain(view, planes)
+            checked += 1
+            if not torch.equal(got, ref):
+                fails.append(f"bf16_planes {tuple(view.stride())} x {planes}: differs from "
+                             f"its plain version")
+    if fails:
+        raise AssertionError(f"tensor-core edge cases: {len(fails)} of {checked} failed: "
+                             f"{'; '.join(fails[:20])}")
+    return {"checked": checked, "vertices": b}
+
+
+def edge_inputs(name: str, kind: str, b: int, nv: int, kd: int, seed: int) -> tuple:
+    """Inputs of precision_inputs' kinds at an edge shape (on the card)."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def draw(*shape):
+        if kind == "integer":
+            return torch.randint(-16, 17, shape, generator=gen, device=DEVICE).float()
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    if name == "streamed_pairwise_acc":
+        if kind == "integer":
+            n_on = 16 if kd >= 16 else 1
+            top = torch.rand((nv, kd), generator=gen, device=DEVICE).topk(n_on, dim=-1).indices
+            signs = torch.randint(0, 2, top.shape, generator=gen, device=DEVICE).float() * 2 - 1
+            latents = torch.zeros((nv, kd), device=DEVICE).scatter_(1, top, signs)
+        else:
+            latents = draw(nv, kd)
+        return draw(b, nv, kd), latents
+    Xv_b = draw(nv, b, kd).permute(1, 0, 2)
+    Z = HM.padded_empty(b, kd, nv, DEVICE).copy_(draw(b, kd, nv))
+    if name == "streamed_acc_from_inv":
+        if kind == "integer":
+            vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=DEVICE)
+            inv = torch.diag_embed(vals[torch.randint(0, 4, (b, kd), generator=gen,
+                                                      device=DEVICE)])
+        else:
+            inv = draw(b, kd, kd) / kd
+        return Xv_b, inv, Z
+    return Xv_b, Z
 
 
 def precision_solvers() -> dict:
@@ -1390,6 +1608,8 @@ def phase_precision() -> dict:
     out["selection"] = precision_selection()
     out["fast_math_cli"] = precision_fast_math_cli()
     out["whole_brain"] = precision_whole_brain()
+    # last, so the timed runs above follow the same work as on earlier trees
+    out["edge_cases"] = precision_edge_cases()
     return out
 
 
@@ -2823,6 +3043,9 @@ def main() -> int:
                          f"(default: {','.join(PHASES)})")
     ap.add_argument("--scorer", default="xla", choices=("xla", *STREAMED_SCORERS),
                     help="CV fold scorer of the profile phase (default: xla)")
+    ap.add_argument("--precision", default="highest", choices=("highest", *TC_PRECISIONS),
+                    help="CV precision of the profile phase; default and high store the "
+                         "selection in bf16 (default: highest)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -2858,7 +3081,7 @@ def main() -> int:
                    "analyses": phase_analyses, "extract": phase_extract,
                    "flips": phase_flips,
                    "wb_profile": phase_wb_profile,
-                   "profile": lambda: phase_profile(args.scorer)}[name]()
+                   "profile": lambda: phase_profile(args.scorer, args.precision)}[name]()
             results[name] = out
             emit({"phase": name, "seconds": time.time() - t0, **out})
 

@@ -41,6 +41,7 @@ from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse, spd_solve
 
 CV_SCORERS = ("xla", "strict", "pallas", "fused", "fused-pallas", "fused-inv")
 _FUSED_SCORERS = ("fused", "fused-pallas", "fused-inv")
+_STREAMED_FUSED = ("fused-pallas", "fused-inv")
 NULL_GATHER_MODES = ("gather", "onehot", "onehot-bf16")
 
 # DERANGEMENTS_THREE_DIMS of the reference (searchlight.py:35)
@@ -175,8 +176,11 @@ def fit_block_cv(
     def fold_scores(val_idx: np.ndarray) -> torch.Tensor:
         lo, hi = int(val_idx[0]), int(val_idx[-1]) + 1  # KFold folds are contiguous
         Xv, Yv, Yv_sel = X_train_g[lo:hi], Y_train[lo:hi], Y_sel[lo:hi]
-        if cv_dtype is not None:
-            Xv = Xv.to(cv_dtype)  # the fold's slice only
+        if cv_dtype is not None:  # the fold's slice only
+            # the streamed fused scorers' patches in rows of a multiple of 64
+            # elements: their tensor-core kernels then load Xv_b by tensor map
+            Xv = (HM.padded_copy(Xv, cv_dtype) if cv_scorer in _STREAMED_FUSED
+                  else Xv.to(cv_dtype))
         Yv_n = Yv / torch.linalg.vector_norm(Yv, dim=-1, keepdim=True)
         Yv_n_sel = Yv_n if cv_dtype is None else Yv_n.to(cv_dtype)
         G_tr = G_full - _gram(Xv, cv_precision)

@@ -16,23 +16,34 @@ ever writing ``sim`` to device memory:
 
 On a CUDA tensor each launches the kernels of ``csrc/streamed_count.cu``
 (built with ``nvcc`` at first use, loaded with ``ctypes`` by
-``ops/_cuda_build``); they read their operands through strides, so a
-transposed view costs no copy.  The kernels copy an operand 16 bytes at a
-time where its rows are 16-byte aligned, else 8 or 4 bytes, so the port
-allocates the ``[B, K, nv]`` operands U and Z with ``padded_empty``.  On a
-CPU tensor each runs its ``*_plain`` version: a dense ``sim`` by
-``torch.matmul``, then ``M.pairwise_acc_from_sim``.  There is no fallback
-from one to the other.
+``ops/_cuda_build``).  On a CPU tensor each runs its ``*_plain`` version: a
+dense ``sim`` by ``torch.matmul``, then ``M.pairwise_acc_from_sim``.  There
+is no fallback from one to the other.
 
 Precision: each function takes the JAX function's ``precision``
-(``ops/precision.py``: ``"highest"``, ``"high"`` or ``"default"``) and runs
-the kernel variant of that name: float32 FMAs at highest, bf16 tensor-core
-products (one pass, or three at high) with float32 accumulators otherwise.
-The first operand (``preds`` or ``Xv_b``) may be bf16, as the selection path
-hands it over under ``cv_dtype``; its values are exact.  Either way
-the diagonal is taken from the kernel's own diagonal tile, so it is the
-arithmetic of the entries it is compared with.  The plain versions compute
-``sim`` with ``ops/precision.matmul`` at the same precision.
+(``ops/precision.py``: ``"highest"``, ``"high"`` or ``"default"``).
+
+* ``"highest"``: the SIMT core, float32 FMAs (a bf16 first operand is
+  widened exactly).  It reads its operands through strides, so a transposed
+  view costs no copy, 16 bytes at a time where the rows are 16-byte aligned
+  (else 8 or 4), so the port allocates the ``[B, K, nv]`` operands U and Z
+  with ``padded_empty``.
+* ``"default"`` / ``"high"``: the tensor-core core (``wgmma`` on bf16
+  shared-memory stages).  Its operands are bf16 planes (``bf16_planes``:
+  ``hi = bf16(x)`` and, at high, ``lo = bf16(x - hi)``, each rounded once)
+  in rows padded to 64 elements (``padded_planes``): the latents, inv, U, a
+  float32 first operand and a float32 Z are rounded once a call by the
+  source's ``split_bf16`` kernel, and ``streamed_acc_from_inv``'s Z GEMM
+  writes Z straight into planes.  A bf16 first operand (``preds`` or
+  ``Xv_b`` as the selection path hands it over under ``cv_dtype``) is read
+  as it is where ``tma_eligible`` holds, else from a ``padded_copy``; every
+  operand is loaded by tensor map (TMA).  Products: hi.hi at default; hi.hi + hi.lo + lo.hi at
+  high (hi.hi + hi.lo where the first operand is bf16), float32 sums.
+
+Either way the diagonal is taken from the kernel's own diagonal tile, so it
+is the arithmetic of the entries it is compared with.  The plain versions
+compute ``sim`` with ``ops/precision.matmul`` at the same precision;
+``count_from_planes_plain`` is the tensor-core core's function on planes.
 
 ``launches`` counts each function's kernel calls on the card (one per call,
 whatever the variant; the CPU path does not count), ``launches_by_precision``
@@ -53,15 +64,25 @@ _SOURCE = "streamed_count.cu"
 _STRIDED_GEMM = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                  ctypes.c_int]
+# a plane operand: pointer, vertex, row and plane strides, planes
+_PLANES_ARG = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int]
 _SIGNATURES = {
-    # ..., batch, nv, kd, precision, a_bf16, counts, stream
-    "streamed_count_launch": _STRIDED_GEMM + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
-    # ..., batch, m, n, kd, precision, c, ldc, stream
-    "gemm_store_launch": _STRIDED_GEMM + [ctypes.c_int] * 4 + [
+    # ..., batch, nv, kd, a_bf16, counts, stream
+    "streamed_count_launch": _STRIDED_GEMM + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+    # ..., batch, m, n, kd, c, ldc, stream
+    "gemm_store_launch": _STRIDED_GEMM + [ctypes.c_int] * 3 + [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    # A planes, Bm planes, b_shared, batch, nv, kd, counts, stream
+    "tc_count_launch": _PLANES_ARG * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+    # A planes, Bm planes, batch, m, n, kd, c, c_sb, c_sr, c_plane, stream
+    "tc_store_launch": _PLANES_ARG * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [
+        ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+    # x, sb, sr, sc, batch, rows, cols, out, o_sb, o_sr, o_plane, planes, stream
+    "split_bf16_launch": [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p],
 }
-# the source's `precision` argument
-_PRECISION_CODE = {"highest": 0, "default": 1, "high": 2}
+# bf16 planes per operand at each tensor-core precision (hi; hi and lo)
+PLANES = {"default": 1, "high": 2}
 
 KERNELS = ("streamed_pairwise_acc", "streamed_acc_from_inv", "streamed_acc_from_factors")
 launches = dict.fromkeys(KERNELS, 0)
@@ -80,6 +101,73 @@ def padded_empty(batch: int, rows: int, cols: int, device) -> torch.Tensor:
     at a time; ``torch.matmul(..., out=view)`` fills it."""
     ld = -(-cols // 4) * 4
     return torch.empty((batch, rows, ld), dtype=torch.float32, device=device)[..., :cols]
+
+
+def padded_planes(planes: int, batch: int, rows: int, cols: int, device) -> torch.Tensor:
+    """An uninitialised bf16 ``[planes, batch, rows, cols]`` view whose rows
+    start 128 bytes apart (a multiple of 64 elements): the layout in which the
+    tensor-core kernels read their planes by tensor map, a stage's 64-column
+    blocks whole and each 128-byte box row one aligned line, and the Z GEMM
+    writes Z."""
+    ld = -(-cols // 64) * 64
+    return torch.empty((planes, batch, rows, ld), dtype=torch.bfloat16, device=device)[..., :cols]
+
+
+def padded_copy(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in ``dtype``, in a view whose rows start 128 bytes apart (a
+    multiple of 64 elements): a bf16 ``[nv, B, K]`` fold slice laid out so,
+    transposed to ``Xv_b [B, nv, K]``, is ``tma_eligible`` and each of its
+    128-byte box rows is one aligned line."""
+    ld = -(-x.shape[-1] // 64) * 64
+    out = torch.empty((*x.shape[:-1], ld), dtype=dtype, device=x.device)[..., :x.shape[-1]]
+    return out.copy_(x)
+
+
+def bf16_planes_plain(x: torch.Tensor, planes: int) -> torch.Tensor:
+    """``bf16_planes`` in plain PyTorch (round to nearest even, as
+    ``ops/precision.split_bf16`` rounds)."""
+    x = x.to(torch.float32)
+    out = padded_planes(planes, *x.shape, x.device)
+    out[0].copy_(x)
+    if planes == 2:
+        out[1].copy_(x - out[0].to(torch.float32))
+    return out
+
+
+def bf16_planes(x: torch.Tensor, planes: int) -> torch.Tensor:
+    """float32 ``x [B, R, C]`` (any strides) as bf16 planes ``[planes, B, R,
+    C]`` in ``padded_planes``: ``hi = bf16(x)`` and, with two planes,
+    ``lo = bf16(x - hi)``, each rounded once.  On the card by the source's
+    ``split_bf16`` kernel, on the CPU by ``bf16_planes_plain``."""
+    if planes not in (1, 2) or x.dim() != 3:
+        raise ValueError(f"bf16_planes takes [B, R, C] and 1 or 2 planes; got "
+                         f"{tuple(x.shape)}, {planes}")
+    if x.device.type == "cpu":
+        return bf16_planes_plain(x, planes)
+    if x.dtype != torch.float32:
+        raise TypeError(f"bf16_planes kernel takes float32; got {x.dtype}")
+    out = padded_planes(planes, *x.shape, x.device)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _call("split_bf16_launch", x.data_ptr(), *x.stride(), *x.shape, out.data_ptr(),
+                  out.stride(1), out.stride(2), out.stride(0), planes, stream)
+    return out
+
+
+def tma_eligible(t: torch.Tensor) -> bool:
+    """Whether a tensor map can describe the bf16 operand ``t [..., rows, k]``
+    (k contiguous), so the count kernel loads it by TMA: its base is 16-byte
+    aligned and every other axis longer than 1 has a stride that is a
+    positive multiple of 16 bytes (8 elements), below 2^40 bytes.  Otherwise
+    (the fold patches' transposed view: a vertex stride of K x 2 bytes) the
+    count reads a ``padded_copy`` of it."""
+    if t.dtype != torch.bfloat16 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+        return False
+    if t.data_ptr() % 16:
+        return False
+    return all(0 < s and s % 8 == 0 and 2 * s < 2 ** 40
+               for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
 
 
 def _unit_rows(latents: torch.Tensor) -> torch.Tensor:
@@ -120,7 +208,7 @@ def _call(fn_name: str, *args) -> None:
 
 def _count_on_card(name: str, a: torch.Tensor, bm: torch.Tensor, bm_strides, b: int,
                    nv: int, kd: int, precision: str) -> torch.Tensor:
-    """Accuracies [b] of sim = A Bm by the count kernel at ``precision``,
+    """Accuracies [b] of sim = A Bm by the SIMT count kernel (``"highest"``),
     counted as a launch of ``name``.
 
     A [b, nv, kd] is float32 or bf16 (read k-contiguous: a bf16 A whose k
@@ -135,8 +223,37 @@ def _count_on_card(name: str, a: torch.Tensor, bm: torch.Tensor, bm_strides, b: 
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
             _call("streamed_count_launch", a.data_ptr(), *a.stride(), bm.data_ptr(),
-                  *bm_strides, b, nv, kd, _PRECISION_CODE[precision], int(a_bf16),
-                  counts.data_ptr(), stream)
+                  *bm_strides, b, nv, kd, int(a_bf16), counts.data_ptr(), stream)
+        launches[name] += 1
+        launches_by_precision[name][precision] += 1
+    return M.count_ratio(counts, nv * nv - nv)
+
+
+def _planes_args(t: torch.Tensor) -> tuple:
+    """A plane operand ``[P, B, rows, cols]`` as the source takes it."""
+    return t.data_ptr(), t.stride(1), t.stride(2), t.stride(0), t.shape[0]
+
+
+def _count_tc(name: str, a: torch.Tensor, bm: torch.Tensor, b_shared: bool, b: int, nv: int,
+              kd: int, precision: str) -> torch.Tensor:
+    """Accuracies [b] of sim = A Bm by the tensor-core count kernel at
+    ``precision``, counted as a launch of ``name``.
+
+    A [b, nv, kd] float32 (rounded here into planes) or bf16 (read as it
+    is where ``tma_eligible``, else from a ``padded_copy``); ``bm``: Bm's bf16 planes
+    ``[P, b or 1, kd, nv]`` (one vertex's, shared by all, where
+    ``b_shared``).
+    """
+    if a.dtype == torch.float32:
+        a_planes = bf16_planes(a, PLANES[precision])
+    else:
+        a_planes = (a if tma_eligible(a) else padded_copy(a, torch.bfloat16)).unsqueeze(0)
+    counts = torch.zeros((b,), dtype=torch.int32, device=a.device)
+    if b and nv and kd:
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            _call("tc_count_launch", *_planes_args(a_planes), *_planes_args(bm), int(b_shared),
+                  b, nv, kd, counts.data_ptr(), stream)
         launches[name] += 1
         launches_by_precision[name][precision] += 1
     return M.count_ratio(counts, nv * nv - nv)
@@ -144,17 +261,33 @@ def _count_on_card(name: str, a: torch.Tensor, bm: torch.Tensor, bm_strides, b: 
 
 def inv_times_u_on_card(inv: torch.Tensor, U: torch.Tensor,
                         precision: str = "highest") -> torch.Tensor:
-    """Z = inv [B, K, K] @ U [B, K, nv] by the source's GEMM kernel at
-    ``precision``, into a ``padded_empty`` view (the Z GEMM of
-    ``streamed_acc_from_inv``; not counted as a launch on its own)."""
+    """Z = inv [B, K, K] @ U [B, K, nv] by the source's GEMM kernels at
+    ``precision`` (the Z GEMM of ``streamed_acc_from_inv``; not counted as a
+    launch on its own).
+
+    ``"highest"``: float32 Z in a ``padded_empty`` view, by the SIMT core.
+    ``"default"`` / ``"high"``: Z's bf16 planes ``[P, B, K, nv]`` in
+    ``padded_planes`` (hi; and lo = bf16(Z - hi) at high), written by the
+    tensor-core core from its float32 accumulators of the rounded inv and U.
+    """
+    precision = PR.resolve(precision)
     b, k, nv = U.shape
-    Z = padded_empty(b, k, nv, U.device)
+    if precision == "highest":
+        Z = padded_empty(b, k, nv, U.device)
+        if b and nv and k:
+            with torch.cuda.device(U.device):
+                stream = torch.cuda.current_stream(U.device).cuda_stream
+                _call("gemm_store_launch", inv.data_ptr(), *inv.stride(), U.data_ptr(),
+                      *U.stride(), b, k, nv, k, Z.data_ptr(), Z.stride(1), stream)
+        return Z
+    planes = PLANES[precision]
+    Z = padded_planes(planes, b, k, nv, U.device)
     if b and nv and k:
+        inv_p, u_p = bf16_planes(inv, planes), bf16_planes(U, planes)
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream(U.device).cuda_stream
-            _call("gemm_store_launch", inv.data_ptr(), *inv.stride(), U.data_ptr(),
-                  *U.stride(), b, k, nv, k, _PRECISION_CODE[PR.resolve(precision)],
-                  Z.data_ptr(), Z.stride(1), stream)
+            _call("tc_store_launch", *_planes_args(inv_p), *_planes_args(u_p), b, k, nv, k,
+                  Z.data_ptr(), Z.stride(1), Z.stride(2), Z.stride(0), stream)
     return Z
 
 
@@ -178,6 +311,17 @@ def streamed_acc_from_factors_plain(Xv_b: torch.Tensor, Z: torch.Tensor,
     return M.pairwise_acc_from_sim(PR.matmul(Xv_b, Z, precision))
 
 
+def count_from_planes_plain(a_planes: torch.Tensor, b_planes: torch.Tensor) -> torch.Tensor:
+    """The tensor-core count's function on bf16 planes: pairwise accuracy
+    [B] of ``sim = sum over plane pairs pa + pb <= 1 of A[pa] @ Bm[pb]`` (exact
+    products, float32 sums), A ``[PA, B, nv, K]``, Bm ``[PB, B or 1, K, nv]``."""
+    a = a_planes.to(torch.float32)
+    bm = b_planes.to(torch.float32)
+    sim = sum(a[pa] @ bm[pb] for pa in range(a.shape[0]) for pb in range(bm.shape[0])
+              if pa + pb <= 1)
+    return M.pairwise_acc_from_sim(sim)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -198,6 +342,9 @@ def streamed_pairwise_acc(preds: torch.Tensor, latents: torch.Tensor,
     if not _uses_kernel(name, preds, latents):
         return streamed_pairwise_acc_plain(preds, latents, precision)
     b, nv, d = preds.shape
+    if precision != "highest":  # the unit latents' bf16 planes [P, 1, D, nv], once a call
+        y_p = bf16_planes(_unit_rows(latents).mT.unsqueeze(0), PLANES[precision])
+        return _count_tc(name, preds, y_p, True, b, nv, d, precision)
     # Bm[b, k, j] = y[j, k], shared by every vertex (batch stride 0), stored
     # [D, nv] with padded rows (a copy of nv x D floats, once per call): the
     # kernel reads it as it reads Z
@@ -216,6 +363,9 @@ def streamed_acc_from_factors(Xv_b: torch.Tensor, Z: torch.Tensor,
     if not _uses_kernel(name, Xv_b, Z):
         return streamed_acc_from_factors_plain(Xv_b, Z, precision)
     b, nv, k = Xv_b.shape
+    if precision != "highest":
+        return _count_tc(name, Xv_b, bf16_planes(Z, PLANES[precision]), False, b, nv, k,
+                         precision)
     return _count_on_card(name, Xv_b, Z, Z.stride(), b, nv, k, precision)
 
 
@@ -226,7 +376,8 @@ def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor, U: torch.Tensor
     On the card ``Z = inv U`` is formed by the source's own GEMM kernel into
     a padded workspace and read back by the count kernel (one call), both at
     ``precision``: at ``"default"`` inv and U are rounded for Z, and Z again
-    for the count, as the TPU kernel's two dots round them.
+    for the count, as the TPU kernel's two dots round them (the tensor-core
+    Z GEMM writes Z rounded, in bf16 planes).
     """
     name = "streamed_acc_from_inv"
     precision = PR.resolve(precision)
@@ -239,4 +390,6 @@ def streamed_acc_from_inv(Xv_b: torch.Tensor, inv: torch.Tensor, U: torch.Tensor
         return streamed_acc_from_inv_plain(Xv_b, inv, U, precision)
     b, nv, k = Xv_b.shape
     Z = inv_times_u_on_card(inv, U, precision)
+    if precision != "highest":
+        return _count_tc(name, Xv_b, Z, False, b, nv, k, precision)
     return _count_on_card(name, Xv_b, Z, Z.stride(), b, nv, k, precision)

@@ -367,10 +367,12 @@ def test_streamed_variants_match_plain(cuda, name, b, nv, k, kind, precision, a_
 
 @pytest.mark.parametrize("kd", [31, 32, 33, 750])
 def test_bf16_first_operand_every_load_width(cuda, kd):
-    """A bf16 first operand is loaded 16, 8, 4 or 2 bytes a thread by its
-    vertex's alignment (Xv_b's vertex stride is kd x 2 bytes): every width,
-    and a copy made where its k axis is not contiguous, counts as the float32
-    operand holding the same values."""
+    """A bf16 first operand whose vertex stride is kd x 2 bytes (Xv_b): the
+    SIMT core (highest) loads it 16, 8, 4 or 2 bytes a thread by its
+    vertex's alignment, the tensor-core core (default, high) by tensor map,
+    from the wrapper's padded copy where the strides do not allow it.  Every
+    width, and a copy made where its k axis is not contiguous, counts as the
+    float32 operand holding the same values."""
     gen = torch.Generator(device=cuda).manual_seed(kd)
     b, nv = 8, 257
     Xv_b = _ints(gen, nv, b, kd).permute(1, 0, 2).bfloat16()
@@ -383,17 +385,28 @@ def test_bf16_first_operand_every_load_width(cuda, kd):
 
 def test_store_gemm_rounds_as_the_tpu_dot(cuda):
     """streamed_acc_from_inv's Z GEMM at "default" is the product of the
-    bf16-rounded inv and U with float32 sums, written unrounded."""
+    bf16-rounded inv and U with float32 sums, written rounded once to bf16
+    (its one plane); at "high" of the bf16 x 3 passes, written as hi and lo
+    = bf16(Z - hi)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     b, k, nv = 4, 750, 300
     inv = torch.randn((b, k, k), generator=gen, device=cuda) / k
     U = HM.padded_empty(b, k, nv, cuda).copy_(torch.randn((b, k, nv), generator=gen,
                                                           device=cuda))
+    scale = (inv.abs() @ U.abs()).max()
+    sums = 4 * k * 2.0 ** -24 * float(scale)  # two float32 sums of the same products
     for precision in ("default", "high"):
         Z = HM.inv_times_u_on_card(inv, U, precision)
+        assert Z.dtype == torch.bfloat16 and Z.shape == (HM.PLANES[precision], b, k, nv)
+        assert Z.stride(2) % 8 == 0
         ref = PR.matmul(inv, U, precision)
-        scale = (inv.abs() @ U.abs()).max()
-        assert float((Z - ref).abs().max()) <= 4 * k * 2.0 ** -24 * float(scale)
+        hi = Z[0].to(torch.float32)
+        # one rounding to bf16: within half a bf16 ulp (2^-9 relative) of the sum
+        assert bool(((hi - ref).abs() <= 2.0 ** -8 * ref.abs() + sums).all()), precision
+        if precision == "high":
+            assert torch.equal(Z[1].to(torch.float32), PR.round_bf16(Z[1].to(torch.float32)))
+            both = hi + Z[1].to(torch.float32)
+            assert float((both - ref).abs().max()) <= 2.0 ** -16 * float(scale) + sums
 
 
 @pytest.mark.parametrize("a_shape,b_shape", [
@@ -412,3 +425,93 @@ def test_precision_matmul_broadcasts_through_bf16_gemms(cuda, a_shape, b_shape):
     assert out.dtype == torch.float32 and out.shape == ref.shape
     assert float((out.double() - ref).abs().max()) <= 2 * 48 * 2.0 ** -24 * float(
         (a.abs() @ b.abs()).max())
+
+# ---------------------------------------------------------------------------
+# The tensor-core core's routes and edges (wgmma on bf16 planes)
+# ---------------------------------------------------------------------------
+
+
+def _edge_first(name, x, layout):
+    """The first operand in one of the layouts the tensor-core core takes: a
+    float32 one (rounded into planes, by tensor map), a bf16 Xv_b in the
+    engine's padded rows (by tensor map) or its unpadded transposed view
+    (vertex strides of kd x 2 bytes: the wrapper reads a padded copy)."""
+    if layout == "float32":
+        return x
+    if layout == "bfloat16_padded" and name != "streamed_pairwise_acc":
+        return HM.padded_copy(x.permute(1, 0, 2), torch.bfloat16).permute(1, 0, 2)
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["float32", "bfloat16_padded", "bfloat16_view"])
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+@pytest.mark.parametrize("nv", [1, 64, 65, 129])
+@pytest.mark.parametrize("name,kd", [(name, kd) for name in HM.KERNELS for kd in (16, 17, 750)]
+                         + [("streamed_pairwise_acc", 1024)])
+def test_tensor_core_edges_match_plain(cuda, name, kd, nv, kind, layout):
+    """nv of one row or column tile and one past it, depths below, at and
+    past a 64-deep stage, 5 vertices (vertex strides of 1500 or 34 bytes
+    in the unpadded view: even and odd vertices off 16-byte alignment), at
+    default and high: counts equal on integer inputs, Gaussian within
+    ACC_TOL or two flipped near-ties."""
+    args = list(_precision_inputs(name, kind, 5, nv, kd, cuda))
+    args[0] = _edge_first(name, args[0], layout)
+    for precision in ("default", "high"):
+        before = HM.launches_by_precision[name][precision]
+        got = getattr(HM, name)(*args, precision=precision)
+        torch.cuda.synchronize()
+        assert HM.launches_by_precision[name][precision] == before + 1
+        ref = getattr(HM, name + "_plain")(*args, precision=precision)
+        if kind == "integer":
+            torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+        else:
+            tol = max(ACC_TOL, 2.0 / max(nv * nv - nv, 1))
+            torch.testing.assert_close(got, ref, rtol=0, atol=tol, equal_nan=True)
+
+
+def test_tensor_core_unpadded_view_counts_as_its_padded_copy(cuda):
+    """The unpadded transposed view, which a tensor map cannot describe, is
+    read from the wrapper's padded copy: the same counts bit for bit as the
+    padded rows the engine hands over (the same planes, the same wgmma
+    sums), one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    b, nv, k = 8, 300, 750
+    Xv = torch.randn((nv, b, k), generator=gen, device=cuda).to(torch.bfloat16)
+    Z = HM.padded_empty(b, k, nv, cuda).copy_(torch.randn((b, k, nv), generator=gen,
+                                                          device=cuda))
+    view = Xv.permute(1, 0, 2)
+    padded = HM.padded_copy(Xv, torch.bfloat16).permute(1, 0, 2)
+    assert not HM.tma_eligible(view.unsqueeze(0)) and HM.tma_eligible(padded.unsqueeze(0))
+    for precision in ("default", "high"):
+        before = HM.launches_by_precision["streamed_acc_from_factors"][precision]
+        assert torch.equal(HM.streamed_acc_from_factors(view, Z, precision),
+                           HM.streamed_acc_from_factors(padded, Z, precision))
+        assert HM.launches_by_precision["streamed_acc_from_factors"][precision] == before + 2
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_bf16_planes_kernel_matches_plain(cuda, planes):
+    """The rounding kernel against its plain version, bit for bit, from a
+    contiguous, a transposed and a strided view, ragged columns included
+    (rows of 1639 / 750 / 749 / 751 columns: tails of 3 / 2 / 1 / 3 past
+    the kernel's four columns a thread)."""
+    gen = torch.Generator(device=cuda).manual_seed(planes)
+    x = torch.randn((3, 129, 1639), generator=gen, device=cuda) * 1e3
+    for view in (x, x.mT, x[..., ::3], x[:, :1, :1], x[..., :750].contiguous(),
+                 x[..., :749].contiguous(), x[..., :751]):
+        got = HM.bf16_planes(view, planes)
+        assert got.stride(2) % 8 == 0
+        assert torch.equal(got, HM.bf16_planes_plain(view, planes))
+
+
+def test_tensor_core_kernels_raise_on_an_operand_a_tensor_map_cannot_describe(cuda):
+    """The padded copy is the wrapper's rule, never a try: handed an operand
+    whose strides a tensor map cannot describe, the entry point refuses, and
+    the call raises."""
+    x = torch.zeros((1, 2, 5, 17), dtype=torch.bfloat16, device=cuda)  # rows of 34 bytes
+    z = HM.padded_planes(1, 2, 17, 5, cuda).zero_()
+    counts = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="cudaError"):
+        HM._call("tc_count_launch", *HM._planes_args(x), *HM._planes_args(z), 0, 2, 5, 17,
+                 counts.data_ptr(), stream)
