@@ -12,7 +12,7 @@ Phases, each printing one JSON line with its seconds:
              kernel's registers, spills and static shared memory, and one
              {"sass_hgmma": {...}} line each kernel's HGMMA (wgmma)
              instructions in cuobjdump's SASS: every tensor-core
-             instantiation must have some.
+             instantiation must have some, and no spills.
 2. kernel  - each kernel against its plain PyTorch version on the card at the
              main path's shapes: max error, CUDA-event median times of the
              kernel, the plain version and one library yardstick (and their
@@ -60,12 +60,14 @@ Phases, each printing one JSON line with its seconds:
              "default" (one bf16 pass on the tensor cores: wgmma on bf16
              planes) and "high" (bf16 x 3), with float32 and bf16 first
              operands (a bf16 Xv_b in the engine's padded rows, loaded by
-             tensor map), against its plain version at that
+             tensor map; streamed_acc_from_factors also with Z's bf16 planes,
+             the form the selection hands over), against its plain version at that
              precision (counts equal on integer inputs in -16..16,
              accuracies within 1e-5 on Gaussian ones; CUDA-event ms, the
              bf16 bound at 989 TFLOP/s, the plain version's ms and a library
              yardstick, one bf16 cuBLAS product with float32 output; the
-             rounding into planes, B4's Z GEMM and the count timed apart;
+             rounding into planes, the Z GEMM (B4's, and factor_planes, the
+             producer of B5's planes) and the count timed apart;
              the rounding kernel bit for bit against its plain version on
              every operand the wrapper rounds, at these shapes);
              "schur-cb16", "schur-cb16-ns" and "tri-inv" at [128, 750] against
@@ -78,15 +80,20 @@ Phases, each printing one JSON line with its seconds:
              package's 0.95 and the default gate's 0.998, where the alphas
              differ the strict CV accuracy given up <= 1e-3, final scores
              bitwise equal where they agree, 240 chol_inv_panel launches and
-             60 of the scorer's kernel at that precision; the searchlight
+             60 of the scorer's kernel at that precision, and fused-pallas
+             equal to fused-inv (the same Z planes into the same count:
+             alphas, CV grids, final and null scores bit for bit); the searchlight
              CLI with --fast-math on phase cli's data set: X_all stored in
              bf16 (its dtype and device bytes as the block steps read it),
              each map's mean |final score - phase cli's| <= 0.02, vertices/s
              and alpha agreement printed; ridge_cv_dual at
              "default" on phase wb_gate's 16 problems (agreement with their
              strict alphas); last, the tensor-core edge cases: nv 1/64/65/129
-             x depth 16/17/750 (and D = 1024) at both precisions for each
-             first-operand layout, and the rounding kernel on ragged views.
+             and 1536/1537/1600/1639/1700 (every width of the last column
+             tile: 64, 128, 192, 256) x depth 16/17/750 (and D = 1024) at
+             both precisions for each first-operand layout and, for
+             streamed_acc_from_factors, Z as float32 and as its planes, and
+             the rounding kernel on ragged views.
              It needs phases cli and wb_gate before it.
 8. wb      - one whole-brain decode at production scale: N=8192 train, 140
              test, 3 imagery, V=327,684 (both fsaverage7 hemispheres), D=1024,
@@ -313,6 +320,9 @@ SELECTION_REGRET_MAX = 1e-3
 FAST_MATH_SCORE_DELTA_MAX = 0.02
 # the JAX package's bands against Cholesky (tests/test_solvers.py:59-60)
 SOLVER_BANDS = {"tri-inv": 5e-5, "schur-cb16": 2e-2, "schur-cb16-ns": 2e-4}
+# the tensor-core edge cases' nv: one row or column tile and one past it, and
+# the last column tile at each width it takes (64, 128, 192, 256 columns)
+EDGE_NV = (1, 64, 65, 129, 1536, 1537, 1600, 1639, 1700)
 PRECISION_SCORERS = {"default": ("xla", "pallas", "fused-pallas", "fused-inv"),
                      "high": ("pallas", "fused-pallas", "fused-inv")}
 
@@ -382,13 +392,19 @@ def phase_build() -> dict:
     if sorted(libs) != ["chol_inv_panel.cu", "streamed_count.cu", "tfce.cpp"]:
         raise AssertionError(f"unexpected sources {sorted(libs)}")
     # registers, spills and static shared memory of every kernel, one line
-    emit({"ptxas": _cuda_build.ptxas_report()})
+    report = _cuda_build.ptxas_report()
+    emit({"ptxas": report})
     hgmma = sass_hgmma(libs["streamed_count.cu"])
     emit({"sass_hgmma": hgmma})
     tc = {k: n for k, n in hgmma.items() if "tc_kernel" in k}
     if len(tc) != 5 or not all(tc.values()):
         raise AssertionError(f"streamed_count.cu: expected 5 tc_kernel instantiations, each "
                              f"with HGMMA in its SASS; cuobjdump shows {hgmma}")
+    tc_rows = [r for r in report if "tc_kernel" in r["kernel"]]
+    spilled = [r for r in tc_rows if r["spill_store_bytes"] != 0 or r["spill_load_bytes"] != 0]
+    if len(tc_rows) != 5 or spilled:
+        raise AssertionError(f"streamed_count.cu: expected 5 tc_kernel instantiations, none "
+                             f"spilling; ptxas reports {tc_rows}")
     return {"libraries": {src: os.path.relpath(p, ROOT) for src, p in libs.items()},
             "tc_kernel_hgmma": tc}
 
@@ -620,9 +636,10 @@ class GateProblem:
                                mesh=mesh, device=None if mesh else DEVICE, cv_solver=solver,
                                cv_scorer=scorer, progress=False, **kw)
 
-    def cv_grids(self, runs):
+    def cv_grids(self, runs, **kw):
         """Per block, the CV-score grids [B, A] of fit_block_cv for each
-        (name, cv_solver, cv_scorer) in ``runs``: {name: [grid, grid]}."""
+        (name, cv_solver, cv_scorer) in ``runs``: {name: [grid, grid]}.
+        ``kw``: more fit_block_cv arguments (cv_precision, cv_dtype)."""
         import torch
 
         from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
@@ -636,7 +653,7 @@ class GateProblem:
             Xg = E.gather_patches(X_train, idx)
             for name, solver, scorer in runs:
                 grids[name].append(E.fit_block_cv(Xg, Y_train, alphas, cv_solver=solver,
-                                                   cv_scorer=scorer)[2])
+                                                   cv_scorer=scorer, **kw)[2])
             del Xg
         return grids
 
@@ -1157,36 +1174,50 @@ def kernel_precision_variant(name: str, precision: str) -> dict:
     """One streamed-count kernel at ``precision`` against its plain version,
     with a float32 and a bf16 first operand, at the main path's shapes (the
     bf16 Xv_b in the engine's padded rows, loaded by TMA), and the rounding
-    kernel on the operands the call rounds (``split_bit_equal``)."""
+    kernel on the operands the call rounds (``split_bit_equal``).
+    streamed_acc_from_factors also takes Z as its bf16 planes beside the bf16
+    Xv_b (``bfloat16_z_planes``: the selection path's form, factor_planes'),
+    counted as the float32 Z they were rounded from."""
     import torch
 
     from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
 
     kernel, plain = getattr(HM, name), getattr(HM, name + "_plain")
+    planes = HM.PLANES[precision]
+    forms = [("float32", torch.float32, False), ("bfloat16", torch.bfloat16, False)]
+    if name == "streamed_acc_from_factors":
+        forms.append(("bfloat16_z_planes", torch.bfloat16, True))
     out = {}
-    for a_dtype in (torch.float32, torch.bfloat16):
-        key = str(a_dtype).removeprefix("torch.")
-        args = list(precision_inputs(name, "integer", seed=21))
-        args[0] = first_operand(name, args[0], a_dtype)
+    for key, a_dtype, z_planes in forms:
+        def inputs(kind, seed):
+            args = list(precision_inputs(name, kind, seed=seed))
+            args[0] = first_operand(name, args[0], a_dtype)
+            second = args[1]  # the float32 latents, inv or Z
+            if z_planes:
+                args[1] = HM.bf16_planes(second, planes)
+            return args, second
+
+        args, second = inputs("integer", 21)
         got, ref = kernel(*args, precision=precision), plain(*args, precision=precision)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
-            raise AssertionError(f"{name} at {precision}, {key} first operand, integer "
-                                 f"inputs: counts differ at {int((got != ref).sum())} of "
-                                 f"{B} vertices")
-        del args, got, ref
-        args = list(precision_inputs(name, "gaussian", seed=22))
-        args[0] = first_operand(name, args[0], a_dtype)
+            raise AssertionError(f"{name} at {precision}, {key}, integer inputs: counts "
+                                 f"differ at {int((got != ref).sum())} of {B} vertices")
+        if z_planes and not torch.equal(got, kernel(args[0], second, precision=precision)):
+            raise AssertionError(f"{name} at {precision}: Z's planes count otherwise than "
+                                 f"the float32 Z they were rounded from")
+        del args, second, got, ref
+        args, second = inputs("gaussian", 22)
         got, ref = kernel(*args, precision=precision), plain(*args, precision=precision)
         torch.cuda.synchronize()
         max_abs = float((got - ref).abs().max())
         if not (max_abs <= ACC_TOL):
-            raise AssertionError(f"{name} at {precision}, {key} first operand, Gaussian "
-                                 f"inputs: max |acc - plain| {max_abs:.3e} > {ACC_TOL:g}")
+            raise AssertionError(f"{name} at {precision}, {key}, Gaussian inputs: "
+                                 f"max |acc - plain| {max_abs:.3e} > {ACC_TOL:g}")
         ms = cuda_time_ms(lambda: kernel(*args, precision=precision), reps=10, warmup=2)
         plain_ms = cuda_time_ms(lambda: plain(*args, precision=precision), reps=5, warmup=1)
         # the same products by cuBLAS, one bf16 pass with float32 output, no count
-        b16 = [a.to(torch.bfloat16).contiguous() for a in args]
+        b16 = [a.to(torch.bfloat16).contiguous() for a in (args[0], second, *args[2:])]
         if name == "streamed_pairwise_acc":
             y16 = HM._unit_rows(args[1]).mT.to(torch.bfloat16).contiguous()
             p16 = b16[0].reshape(B * NV, D)
@@ -1201,8 +1232,8 @@ def kernel_precision_variant(name: str, precision: str) -> dict:
             def library():
                 return torch.bmm(b16[0], b16[1], out_dtype=torch.float32)
         library_ms = cuda_time_ms(library, reps=10, warmup=2)
-        # the count GEMM's second operand (latents, Z) is float32; B4's Z GEMM
-        # (inv U) takes two float32 operands
+        # the count GEMM's second operand (latents, Z) is float32 (Z's planes
+        # hold its hi and lo parts); B4's Z GEMM (inv U) takes two float32 operands
         depth = D if name == "streamed_pairwise_acc" else K
         flops = 2.0 * B * NV * NV * depth * bf16_passes(precision, a_dtype, torch.float32)
         if name == "streamed_acc_from_inv":
@@ -1219,7 +1250,7 @@ def kernel_precision_variant(name: str, precision: str) -> dict:
                     "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
                     "flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12,
                     **tc_parts(name, precision, args)}
-        del args, got, ref, b16
+        del args, second, got, ref, b16
     return out
 
 
@@ -1259,7 +1290,9 @@ def split_bit_equal(name: str, precision: str, args) -> dict:
 def tc_parts(name: str, precision: str, args) -> dict:
     """The stages of a tensor-core call timed apart (CUDA events): the
     rounding of float32 operands into bf16 planes (split_bf16), B4's Z GEMM
-    (tc_store) and the count (tc_count)."""
+    (tc_store) and the count (tc_count).  With Z's planes handed to
+    streamed_acc_from_factors the call is the count alone; their producer,
+    factor_planes (the same Z GEMM at B4's shapes), is timed beside it."""
     import torch
 
     from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
@@ -1277,6 +1310,11 @@ def tc_parts(name: str, precision: str, args) -> dict:
                                                   HM.bf16_planes(U, planes))),
                  "z_gemm_with_split_ms": timed(lambda: HM.inv_times_u_on_card(inv, U,
                                                                               precision))}
+    elif args[1].dim() == 4:
+        Z = args[1]
+        _, inv, U = precision_inputs("streamed_acc_from_inv", "gaussian", seed=23)
+        parts = {"z_producer_ms": timed(lambda: HM.factor_planes(inv, U, precision))}
+        del inv, U
     else:
         Z = HM.bf16_planes(args[1], planes)
         parts = {"split_z_ms": timed(lambda: HM.bf16_planes(args[1], planes))}
@@ -1288,12 +1326,15 @@ def tc_parts(name: str, precision: str, args) -> dict:
 
 def precision_edge_cases() -> dict:
     """The tensor-core variants at the edges, against their plain versions on
-    the card: nv 1 / 64 / 65 / 129 (one row or column tile, one past it),
-    depth 16 / 17 / 750 (and D = 1024 for streamed_pairwise_acc), at
-    default and high, a float32 first operand (rounded into planes, TMA), a
-    bf16 one in padded rows (TMA) and the unpadded transposed view (vertex
-    strides of kd x 2 bytes, even and odd vertices off 16-byte alignment:
-    the wrapper's padded copy), Z in bf16 and in hi/lo planes.
+    the card: nv 1 / 64 / 65 / 129 (one row or column tile, one past it) and
+    1536 / 1537 / 1600 / 1639 / 1700 (the last column tile 256, 64, 64, 128
+    and 192 columns wide), depth 16 / 17 / 750 (and D = 1024 for
+    streamed_pairwise_acc), at default and high, a float32 first operand
+    (rounded into planes, TMA), a bf16 one in padded rows (TMA) and the
+    unpadded transposed view (vertex strides of kd x 2 bytes, even and odd
+    vertices off 16-byte alignment: the wrapper's padded copy), Z in bf16
+    and in hi/lo planes, rounded by the wrapper or handed over as planes
+    (streamed_acc_from_factors with a bf16 first operand).
     Integer inputs: counts equal; Gaussian: within ACC_TOL or two flipped
     near-ties.  Also the rounding kernel (bf16_planes) bit for bit against
     its plain version."""
@@ -1304,17 +1345,22 @@ def precision_edge_cases() -> dict:
     b, checked, fails = 5, 0, []
     for name, _ in STREAMED:
         depths = (16, 17, 750) + ((D,) if name == "streamed_pairwise_acc" else ())
-        for nv in (1, 64, 65, 129):
+        layouts = ["float32", "bfloat16_padded", "bfloat16_view"]
+        if name == "streamed_acc_from_factors":
+            layouts += ["bfloat16_padded+z_planes", "bfloat16_view+z_planes"]
+        for nv in EDGE_NV:
             for kd in depths:
                 for kind in ("integer", "gaussian"):
                     base = edge_inputs(name, kind, b, nv, kd, seed=nv * 131 + kd)
-                    for layout in ("float32", "bfloat16_padded", "bfloat16_view"):
+                    for layout in layouts:
                         args = list(base)
-                        if layout == "bfloat16_padded":
+                        if layout.startswith("bfloat16_padded"):
                             args[0] = first_operand(name, base[0], torch.bfloat16)
-                        elif layout == "bfloat16_view":
+                        elif layout.startswith("bfloat16_view"):
                             args[0] = base[0].to(torch.bfloat16)
                         for precision in TC_PRECISIONS:
+                            if layout.endswith("z_planes"):
+                                args[1] = HM.bf16_planes(base[1], HM.PLANES[precision])
                             before = HM.launches_by_precision[name][precision]
                             got = getattr(HM, name)(*args, precision=precision)
                             torch.cuda.synchronize()
@@ -1423,7 +1469,10 @@ def precision_solvers() -> dict:
 
 def precision_selection() -> dict:
     """The gate's 2 blocks with bf16 selection storage on "schur-pallas" at
-    each tensor-core precision, each scorer against the strict path."""
+    each tensor-core precision, each scorer against the strict path, and
+    fused-pallas against fused-inv: both count the same Z planes (Z's GEMM,
+    then the tensor-core count), so their alphas, CV grids, final and null
+    scores are equal bit for bit."""
     import numpy as np
     import torch
 
@@ -1437,12 +1486,15 @@ def precision_selection() -> dict:
     alpha_col = {a: i for i, a in enumerate(np.float32(ALPHAS))}
     strict_col = np.array([alpha_col[a] for a in strict_aux["best_alpha"]])
     out, fails = {"strict_vertices_per_sec": strict_aux["vertices_per_sec"]}, []
+    fused = {}
     for precision, scorers in PRECISION_SCORERS.items():
         for scorer in scorers:
             H.reset_launches()
             HM.reset_launches()
             got, aux = gate.run("schur-pallas", scorer, cv_precision=precision,
                                 cv_dtype=torch.bfloat16)
+            if scorer in ("fused-pallas", "fused-inv"):
+                fused[scorer, precision] = got, aux
             agree = aux["best_alpha"] == strict_aux["best_alpha"]
             equal_where_agree = (
                 all(np.array_equal(got[m][agree], strict[m][agree]) for m in strict)
@@ -1478,6 +1530,21 @@ def precision_selection() -> dict:
                              f"{2 * LAUNCHES_PER_BLOCK}")
             if launches != expected:
                 fails.append(f"{where}: streamed launches {launches}, expected {expected}")
+    for precision in TC_PRECISIONS:
+        (got_p, aux_p), (got_i, aux_i) = fused["fused-pallas", precision], fused[
+            "fused-inv", precision]
+        grids = gate.cv_grids([(s, "schur-pallas", s) for s in ("fused-pallas", "fused-inv")],
+                              cv_precision=precision, cv_dtype=torch.bfloat16)
+        same = {
+            "alphas": bool(np.array_equal(aux_p["best_alpha"], aux_i["best_alpha"])),
+            "cv_grids": all(torch.equal(p, i) for p, i in zip(grids["fused-pallas"],
+                                                               grids["fused-inv"])),
+            "final_scores": all(np.array_equal(got_p[m], got_i[m]) for m in got_i),
+            "null_scores": all(np.array_equal(aux_p["null_scores"][m], v)
+                               for m, v in aux_i["null_scores"].items())}
+        out[f"fused-pallas_equals_fused-inv:{precision}"] = same
+        if not all(same.values()):
+            fails.append(f"fused-pallas differs from fused-inv at {precision}: {same}")
     if fails:
         raise AssertionError(f"precision selection: {'; '.join(fails)}: {out}")
     return out
@@ -3016,22 +3083,27 @@ def kernels_line(results: dict) -> dict:
             **{k: measured.get(k) for k in keys}, "library_ratio": measured.get("library_ratio"),
         })
         # the tensor-core variants: launches from the bf16 selection run of
-        # their scorer at that precision, times with the bf16 first operand
-        # that run hands them (and with a float32 one beside it)
+        # their scorer at that precision, times with the operands that run
+        # hands them (a bf16 first operand; for streamed_acc_from_factors Z's
+        # bf16 planes), and with a float32 first operand (and Z) beside them
+        factors = name == "streamed_acc_from_factors"
         for prec in TC_PRECISIONS:
             variant = precision.get("kernels", {}).get(f"{name}:{prec}", {})
-            main = variant.get("bfloat16", {})
+            main = variant.get("bfloat16_z_planes" if factors else "bfloat16", {})
             sel = precision.get("selection", {}).get(f"{scorer_of[name]}:{prec}", {})
+            timed = ("ms", "max_abs_err", "bound_ms")
             kernels.append({
                 "name": f"{name}:{prec}", "route": "cuda",
                 "source": "multimodal_decoding_tpu_torch/csrc/streamed_count.cu",
                 "replaces": replaces, "precision": prec,
                 "launches": sel.get("launches", {}).get(name, {}).get(prec),
                 "first_operand": "bfloat16",
+                **({"z": "bf16 planes from factor_planes",
+                    "float32_z": {k: variant.get("bfloat16", {}).get(k) for k in timed}}
+                   if factors else {}),
                 **{k: main.get(k) for k in keys if k != "shape"},
                 "library_ratio": main.get("library_ratio"),
-                "float32_first_operand": {k: variant.get("float32", {}).get(k)
-                                          for k in ("ms", "max_abs_err", "bound_ms")},
+                "float32_first_operand": {k: variant.get("float32", {}).get(k) for k in timed},
             })
     return {"kernels": kernels}
 

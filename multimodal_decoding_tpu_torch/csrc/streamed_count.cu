@@ -83,9 +83,13 @@
 //     and 32 at high (below).  The wrapper
 //     rounds a float32 operand once a call (split_bf16_kernel: the latents
 //     of streamed_pairwise_acc, which every vertex shares, inv and U for Z, a
-//     float32 first operand, the float32 Z handed to streamed_acc_from_factors);
-//     streamed_acc_from_inv's Z GEMM writes Z straight into bf16 planes from
-//     its accumulators (half the bytes of the float32 round trip).  At
+//     float32 first operand, a float32 Z handed to streamed_acc_from_factors);
+//     the Z GEMM (tc_store_launch) writes Z = inv U straight into bf16 planes
+//     from its accumulators (half the bytes of the float32 round trip):
+//     inside streamed_acc_from_inv's call, and ahead of
+//     streamed_acc_from_factors on the selection path
+//     (hopper_metrics.factor_planes), which then reads Z's planes as they are
+//     and rounds nothing in its call.  At
 //     default that is what the count's rounding did: round-to-nearest-even,
 //     once.  Planes have rows padded to 64 elements (128 bytes), so every
 //     128-byte box row is one aligned L2 line (rows padded to 8 elements
@@ -94,7 +98,12 @@
 //     consumer warpgroups, each 64 rows of the 128 x 256 tile (128 floats a
 //     thread), 4 k16 steps a stage, one wgmma per step and product (1 at
 //     default, 2 or 3 at high).  Bm is MN-major (Z and the latents are [kd, nv]
-//     with nv contiguous): the transpose bit of 16-bit wgmma.
+//     with nv contiguous): the transpose bit of 16-bit wgmma.  The last
+//     column tile computes only its columns, rounded up to a 64-column block
+//     of Bm's stage (m64nWk16, W = 64, 128, 192 or 256, set at launch from
+//     n): nv = 1639 is 6 tiles of 256 and one of 128, 1664 columns instead
+//     of 1792.  Its box is still 4 blocks wide; the blocks past n are the
+//     tensor map's zero fill, which reads nothing.
 //   * TMA for every operand: a tensor map needs a 16-byte-aligned base and
 //     strides that are multiples of 16 bytes.  Every plane the wrapper writes
 //     has them, so do a bf16 preds [B, nv, 1024] and the engine's bf16 fold
@@ -132,11 +141,16 @@
 //     Masks i < nv, j < nv; one atomicAdd per item into counts[b].
 //   * Every mbarrier wait traps after 2^24 tries: a pipeline fault fails the
 //     launch instead of holding the card.
-// What binds it on an H100 (utils/tc_ablation.py, PERF.md): the loads, by a
-// little.  With the wgmmas switched off a count takes as long as with them;
-// with the loads switched off streamed_acc_from_factors' count runs at ~740
-// TFLOP/s, ~80% of the time.  A 2-block cluster that multicast each Bm tile
-// into both blocks (a third fewer bytes from L2) ran no faster.
+// What binds it on an H100 (tools/tc_ablation.py, PERF.md): the loads.  With
+// the wgmmas switched off a count takes as long as with them; with the
+// loads switched off streamed_acc_from_factors' count takes ~80-85% of the
+// time; with the count's epilogue switched off (no diagonal, no
+// comparisons) as long as with it, so the epilogue that follows each
+// column tile's drain is not on the critical path.  A stage's A box (16 KB)
+// costs as much time as its Bm box (32 KB).  A's rows 1.5 KB apart instead
+// of 192 KB ran 2-8% faster; an evict-last L2 policy on A, 128-byte L2
+// promotion and a 2-block cluster that multicast each Bm tile into both
+// blocks (a third fewer bytes from L2) ran no faster.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libstreamed_count.so streamed_count.cu
@@ -723,6 +737,7 @@ struct Args {
   int b_shared;              // Bm is shared by every vertex (its vertex coordinate is 0)
   int batch, m, n, kd;
   int row_tiles, col_tiles, items;
+  int tail;                  // columns computed in the last column tile: 64, 128, 192 or 256
   int* counts;               // count: [batch] int32
   uint16_t* c;               // store: bf16 planes [planes][batch][m][c_sr]
   long long c_sb, c_sr, c_plane;
@@ -788,10 +803,97 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A Bm for one m64n256k16 step: A K-major and Bm MN-major (transpose
-// bit) in shared memory; scale_d 0 starts the sum.
-__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t db,
-                                          int scale_d) {
+// d (+)= A Bm for one m64nWk16 step (W = 64, 128, 192 or 256 columns, into
+// d[0, W/2)): A K-major and Bm MN-major (transpose bit) in shared memory;
+// scale_d 0 starts the sum.  Column 8 j + 2 t (+ 1) of rows g and g + 8 of
+// a warp's 16 lies in d[4 j], d[4 j + 1] and d[4 j + 2], d[4 j + 3] of its
+// thread 4 g + t at every W, so a narrower product is a prefix of d.
+template <int W>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<192>(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -803,32 +905,29 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
-      "%125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
-        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
-        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
-        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
-        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
-        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
-        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
-        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
-        "+f"(d[127])
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -866,6 +965,52 @@ __device__ __forceinline__ void decode(const Args& g, int item, int& b, int& r, 
 __device__ __forceinline__ int count_column(int t, int r) {
   const int dc = r * kM / kN;
   return t == 0 ? dc : (t - 1 < dc ? t - 1 : t);
+}
+
+// The products of one column tile W columns wide (kN; the last tile of a row
+// W = g.tail): each stage of k is waited for, its m64nWk16 wgmmas (into
+// acc[0, W/2)) issued and committed, and the stage before it released once
+// its products are done (wgmma.wait_group 1, so the tensor cores never wait
+// for a release).  Returns with the tile's products done and its last stage
+// released.
+template <int W, int PA, int PB>
+__device__ __forceinline__ void tile_products(float (&acc)[128], uint32_t ring_u32,
+                                              uint64_t* full, uint64_t* empty, int wg, int lane,
+                                              int kd, int& stage, uint32_t& phase) {
+  using R = Ring<PA, PB>;
+  constexpr int kK = R::kK, kABytes = R::kABytes, kBBytes = R::kBBytes;
+  constexpr uint64_t kALayout = kK == 64 ? 1 : 2;  // SWIZZLE_128B, SWIZZLE_64B
+  int prev = -1;
+  for (int k0 = 0; k0 < kd; k0 += kK) {
+    mbar_wait(full + stage, phase);
+    const uint32_t sa = ring_u32 + stage * R::kStageBytes + wg * (64 * kK * 2);
+    const uint32_t sb = ring_u32 + stage * R::kStageBytes + PA * kABytes;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kK / 16; ++ks)
+#pragma unroll
+      for (int pa = 0; pa < PA; ++pa)
+#pragma unroll
+        for (int pb = 0; pb < PB; ++pb) {
+          if (pa + pb > 1) continue;  // lo.lo is not a pass
+          wgmma<W>(acc, smem_desc(sa + pa * kABytes + ks * 32, 16, 8 * kK * 2, kALayout),
+                   smem_desc(sb + pb * kBBytes + ks * 16 * 128, R::kBBlock, 1024, 1),
+                   (k0 > 0 || ks > 0 || pa + pb > 0) ? 1 : 0);
+        }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);
+    prev = stage;
+    if (++stage == R::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (lane == 0) mbar_arrive(empty + prev);
 }
 
 // kCount: counts[b] += #{i, j < m = n : sim[b, i, j] < sim[b, i, i]};
@@ -945,8 +1090,6 @@ tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
   // this thread's accumulator rows (tile-local): rbase and rbase + 8
   const int rbase = wg * 64 + (warp % 4) * 16 + lane / 4;
   const int tg = lane % 4;
-  constexpr int kK = R::kK, kABytes = R::kABytes, kBBytes = R::kBBytes;
-  constexpr uint64_t kALayout = kK == 64 ? 1 : 2;  // SWIZZLE_128B, SWIZZLE_64B
   float acc[128];
   int stage = 0;
   uint32_t phase = 0;
@@ -957,38 +1100,21 @@ tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
     float d0 = 0.0f, d1 = 0.0f;  // count: the diagonal of rows rbase, rbase + 8
     int count = 0;
     for (int t = 0; t < tiles; ++t) {
-      const int j0 = (kCount ? count_column(t, r) : c) * kN;
-      int prev = -1;
-      for (int k0 = 0; k0 < kd; k0 += kK) {
-        mbar_wait(full + stage, phase);
-        const uint32_t sa = ring_u32 + stage * R::kStageBytes + wg * (64 * kK * 2);
-        const uint32_t sb = ring_u32 + stage * R::kStageBytes + PA * kABytes;
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kK / 16; ++ks)
-#pragma unroll
-          for (int pa = 0; pa < PA; ++pa)
-#pragma unroll
-            for (int pb = 0; pb < PB; ++pb) {
-              if (pa + pb > 1) continue;  // lo.lo is not a pass
-              wgmma_256(acc, smem_desc(sa + pa * kABytes + ks * 32, 16, 8 * kK * 2, kALayout),
-                        smem_desc(sb + pb * kBBytes + ks * 16 * 128, R::kBBlock, 1024, 1),
-                        (k0 > 0 || ks > 0 || pa + pb > 0) ? 1 : 0);
-            }
-        wgmma_commit();
-        fence_acc(acc);
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);
-        prev = stage;
-        if (++stage == R::kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
+      const int ct = kCount ? count_column(t, r) : c;
+      const int j0 = ct * kN;
+      // the last column tile computes its columns only, to the next 64 (a
+      // block of Bm's stage); the accumulators past them are never read as
+      // entries: their columns lie past n
+      const int w = ct == g.col_tiles - 1 ? g.tail : kN;
+      if (w == kN) {
+        tile_products<kN, PA, PB>(acc, ring_u32, full, empty, wg, lane, kd, stage, phase);
+      } else if (w == 192) {
+        tile_products<192, PA, PB>(acc, ring_u32, full, empty, wg, lane, kd, stage, phase);
+      } else if (w == 128) {
+        tile_products<128, PA, PB>(acc, ring_u32, full, empty, wg, lane, kd, stage, phase);
+      } else {
+        tile_products<64, PA, PB>(acc, ring_u32, full, empty, wg, lane, kd, stage, phase);
       }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (lane == 0) mbar_arrive(empty + prev);
 
       if constexpr (kCount) {
         if (t == 0) {  // the diagonal tile: the thread holding (i, i) shares it
@@ -1190,6 +1316,7 @@ cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, Args g, c
   if (err != cudaSuccess) return err;
   g.row_tiles = (g.m + kM - 1) / kM;
   g.col_tiles = (g.n + kN - 1) / kN;
+  g.tail = (g.n - (g.col_tiles - 1) * kN + 63) / 64 * 64;
   g.items = g.batch * g.row_tiles * (kCount ? 1 : g.col_tiles);
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;

@@ -138,8 +138,9 @@ def fit_block_cv(
     ``inv = (G_tr + a I)^-1`` per alpha, ``sim = Xv (inv U)``, with no
     ``[B, nv, D]`` predictions: "fused" forms ``sim`` densely,
     "fused-pallas" streams it from ``Z = inv U``
-    (``HM.streamed_acc_from_factors``) and "fused-inv" forms ``Z`` inside
-    the kernel's call too (``HM.streamed_acc_from_inv``).
+    (``HM.streamed_acc_from_factors``; at "default"/"high" Z comes as bf16
+    planes from ``HM.factor_planes``) and "fused-inv" forms ``Z`` inside the
+    kernel's call too (``HM.streamed_acc_from_inv``, the same Z GEMM).
 
     ``cv_alpha_batch`` (``True`` or a chunk that divides the alpha count;
     "xla" scorer only) inverts ``chunk`` alpha-shifted systems in one
@@ -195,7 +196,13 @@ def fit_block_cv(
                 if cv_scorer == "fused-inv":
                     out.append(HM.streamed_acc_from_inv(Xv_b, inv, U, cv_precision))
                     continue
-                Z = k_by_nv(inv, U)  # [B, K, nv]
+                if cv_scorer == "fused-pallas" and PR.resolve(cv_precision) != "highest":
+                    # Z's bf16 planes [P, B, K, nv] from its producer, the
+                    # GEMM fused-inv forms it with: the count reads them as
+                    # they are
+                    Z = HM.factor_planes(inv, U, cv_precision)
+                else:
+                    Z = k_by_nv(inv, U)  # [B, K, nv]
                 if cv_scorer == "fused-pallas":
                     out.append(HM.streamed_acc_from_factors(Xv_b, Z, cv_precision))
                 else:

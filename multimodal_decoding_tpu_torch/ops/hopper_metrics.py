@@ -10,6 +10,9 @@ ever writing ``sim`` to device memory:
   ``sim = preds (latents / |latents|)^T`` (the latent rows are normalised
   here; prediction row norms cancel in the per-row comparisons).
 * ``streamed_acc_from_factors(Xv_b [B, nv, K], Z [B, K, nv])``: ``sim = Xv_b Z``.
+  At ``"default"`` / ``"high"`` Z may also come as its bf16 planes ``[P, B,
+  K, nv]`` (``factor_planes``, the form the selection path hands over),
+  read as they are.
 * ``streamed_acc_from_inv(Xv_b [B, nv, K], inv [B, K, K], U [B, K, nv])``:
   ``sim = Xv_b (inv U)``, where ``inv U`` is formed by the hand-written GEMM
   of the same source, not by a library call.
@@ -33,11 +36,13 @@ Precision: each function takes the JAX function's ``precision``
   ``hi = bf16(x)`` and, at high, ``lo = bf16(x - hi)``, each rounded once)
   in rows padded to 64 elements (``padded_planes``): the latents, inv, U, a
   float32 first operand and a float32 Z are rounded once a call by the
-  source's ``split_bf16`` kernel, and ``streamed_acc_from_inv``'s Z GEMM
-  writes Z straight into planes.  A bf16 first operand (``preds`` or
-  ``Xv_b`` as the selection path hands it over under ``cv_dtype``) is read
-  as it is where ``tma_eligible`` holds, else from a ``padded_copy``; every
-  operand is loaded by tensor map (TMA).  Products: hi.hi at default; hi.hi + hi.lo + lo.hi at
+  source's ``split_bf16`` kernel, and the Z GEMM (``factor_planes``, inside
+  ``streamed_acc_from_inv`` and ahead of ``streamed_acc_from_factors`` on
+  the selection path) writes Z straight into planes.  A bf16 first operand
+  (``preds`` or ``Xv_b`` as the selection path hands it over under
+  ``cv_dtype``) is read as it is where ``tma_eligible`` holds, else from a
+  ``padded_copy``; every operand is loaded by tensor map (TMA).  Products:
+  hi.hi at default; hi.hi + hi.lo + lo.hi at
   high (hi.hi + hi.lo where the first operand is bf16), float32 sums.
 
 Either way the diagonal is taken from the kernel's own diagonal tile, so it
@@ -174,9 +179,11 @@ def _unit_rows(latents: torch.Tensor) -> torch.Tensor:
     return latents / torch.linalg.vector_norm(latents, dim=-1, keepdim=True)
 
 
-def _uses_kernel(name: str, first: torch.Tensor, *others: torch.Tensor) -> bool:
+def _uses_kernel(name: str, first: torch.Tensor, *others: torch.Tensor,
+                 others_dtype=torch.float32) -> bool:
     """False for CPU tensors (plain version), True for CUDA tensors the kernel
-    takes (a float32 or bf16 first operand, float32 others); raises otherwise."""
+    takes (a float32 or bf16 first operand, ``others_dtype`` others); raises
+    otherwise."""
     devices = {t.device for t in (first, *others)}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
@@ -188,8 +195,8 @@ def _uses_kernel(name: str, first: torch.Tensor, *others: torch.Tensor) -> bool:
     if first.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel takes a float32 or bf16 first operand; got {first.dtype}")
     for t in others:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32; got {t.dtype}")
+        if t.dtype != others_dtype:
+            raise TypeError(f"{name} kernel takes {others_dtype}; got {t.dtype}")
     return True
 
 
@@ -291,6 +298,44 @@ def inv_times_u_on_card(inv: torch.Tensor, U: torch.Tensor,
     return Z
 
 
+def planes_eligible(t: torch.Tensor) -> bool:
+    """Whether the count can load second-operand planes ``t [P, B, K, nv]``
+    by tensor map as they are: bf16, nv contiguous, a 16-byte-aligned base,
+    rows a multiple of 128 bytes apart (whole 64-column blocks, as
+    ``padded_planes`` lays them out) and the other strides multiples of 16
+    bytes."""
+    if t.dtype != torch.bfloat16 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+        return False
+    if t.data_ptr() % 16 or t.stride(2) % 64 or t.stride(2) < t.shape[-1]:
+        return False
+    return all(0 < s and s % 8 == 0 and 2 * s < 2 ** 40
+               for n, s in zip(t.shape[:2], t.stride()[:2]) if n > 1)
+
+
+def factor_planes(inv: torch.Tensor, U: torch.Tensor, precision: str) -> torch.Tensor:
+    """Z = inv [B, K, K] @ U [B, K, nv] at ``"default"`` or ``"high"``, as
+    the bf16 planes ``[P, B, K, nv]`` (``padded_planes``) that
+    ``streamed_acc_from_factors`` reads as they are: hi, and lo = bf16(Z -
+    hi) at high, Z's float32 sums rounded once to nearest even.
+
+    This is the TPU's ``jnp.matmul(inv, U, precision=DEFAULT|HIGH)``
+    followed by the count kernel's rounding of Z.  On the card it is
+    ``inv_times_u_on_card``, the hand-written GEMM that
+    ``streamed_acc_from_inv`` forms its Z with (not counted as a launch); on
+    the CPU ``bf16_planes_plain(PR.matmul(inv, U, precision), P)``.
+    """
+    name = "factor_planes"
+    precision = PR.resolve(precision)
+    if precision not in PLANES:
+        raise ValueError(f"{name} forms bf16 planes at {tuple(PLANES)}; got {precision!r}")
+    _check_shapes(name, "inv [B, K, K] and U [B, K, nv]",
+                  inv.dim() == 3 and U.dim() == 3 and inv.shape[0] == U.shape[0]
+                  and inv.shape[1] == inv.shape[2] == U.shape[1], inv, U)
+    if not _uses_kernel(name, inv, U):
+        return bf16_planes_plain(PR.matmul(inv, U, precision), PLANES[precision])
+    return inv_times_u_on_card(inv, U, precision)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path; the card's reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
@@ -308,6 +353,14 @@ def streamed_acc_from_inv_plain(Xv_b: torch.Tensor, inv: torch.Tensor, U: torch.
 
 def streamed_acc_from_factors_plain(Xv_b: torch.Tensor, Z: torch.Tensor,
                                     precision="highest") -> torch.Tensor:
+    """Z float32 [B, K, nv], or its bf16 planes [P, B, K, nv]: the tensor-core
+    count's function on them (``count_from_planes_plain``), a bf16 Xv_b as
+    its one plane and a float32 one rounded into P."""
+    if Z.dim() == 4:
+        _check_factor_planes(Xv_b, Z, PR.resolve(precision))
+        a = (Xv_b.unsqueeze(0) if Xv_b.dtype == torch.bfloat16
+             else bf16_planes_plain(Xv_b, Z.shape[0]))
+        return count_from_planes_plain(a, Z)
     return M.pairwise_acc_from_sim(PR.matmul(Xv_b, Z, precision))
 
 
@@ -352,11 +405,41 @@ def streamed_pairwise_acc(preds: torch.Tensor, latents: torch.Tensor,
     return _count_on_card(name, preds, y_t, (0, y_t.stride(0), 1), b, nv, d, precision)
 
 
+def _check_factor_planes(Xv_b: torch.Tensor, Z: torch.Tensor, precision: str) -> None:
+    """Z's planes must be bf16 [PLANES[precision], B, K, nv]: one plane at
+    high would silently count another function."""
+    planes = PLANES.get(precision)
+    ok = (planes is not None and Xv_b.dim() == 3 and Z.dim() == 4 and Z.shape[0] == planes
+          and tuple(Z.shape[1:]) == (Xv_b.shape[0], Xv_b.shape[2], Xv_b.shape[1]))
+    _check_shapes("streamed_acc_from_factors",
+                  f"Xv_b [B, nv, K] and Z's bf16 planes [{planes}, B, K, nv] at {precision!r}"
+                  if planes else f"a float32 Z [B, K, nv] at {precision!r} (planes are "
+                  f"taken at {tuple(PLANES)})", ok, Xv_b, Z)
+    if Z.dtype != torch.bfloat16:
+        raise TypeError(f"streamed_acc_from_factors: Z's planes are bf16; got {Z.dtype}")
+
+
 def streamed_acc_from_factors(Xv_b: torch.Tensor, Z: torch.Tensor,
                               precision="highest") -> torch.Tensor:
-    """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ Z [B, K, nv]."""
+    """Pairwise accuracy [B] of sim = Xv_b [B, nv, K] @ Z [B, K, nv].
+
+    At ``"default"`` / ``"high"`` Z may be its bf16 planes ``[P, B, K, nv]``
+    (``factor_planes``; P = ``PLANES[precision]``), which the count reads as
+    they are (on the card in a layout ``planes_eligible`` accepts, as
+    ``padded_planes`` lays them out); a float32 Z is rounded into planes
+    first, as the JAX function's kernel rounds it.
+    """
     name = "streamed_acc_from_factors"
     precision = PR.resolve(precision)
+    if Z.dim() == 4:
+        _check_factor_planes(Xv_b, Z, precision)
+        if not _uses_kernel(name, Xv_b, Z, others_dtype=torch.bfloat16):
+            return streamed_acc_from_factors_plain(Xv_b, Z, precision)
+        if not planes_eligible(Z):
+            raise ValueError(f"{name}: Z's planes {tuple(Z.shape)} at strides {Z.stride()} "
+                             f"are not in padded_planes' layout, which the count loads")
+        b, nv, k = Xv_b.shape
+        return _count_tc(name, Xv_b, Z, False, b, nv, k, precision)
     _check_shapes(name, "Xv_b [B, nv, K] and Z [B, K, nv]",
                   Xv_b.dim() == 3 and Z.dim() == 3 and Z.shape[0] == Xv_b.shape[0]
                   and Z.shape[1] == Xv_b.shape[2] and Z.shape[2] == Xv_b.shape[1], Xv_b, Z)

@@ -515,3 +515,88 @@ def test_tensor_core_kernels_raise_on_an_operand_a_tensor_map_cannot_describe(cu
     with pytest.raises(RuntimeError, match="cudaError"):
         HM._call("tc_count_launch", *HM._planes_args(x), *HM._planes_args(z), 0, 2, 5, 17,
                  counts.data_ptr(), stream)
+
+
+# ---------------------------------------------------------------------------
+# streamed_acc_from_factors on Z's bf16 planes (the selection path's form)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["bfloat16_padded", "bfloat16_view"])
+@pytest.mark.parametrize("precision", ["default", "high"])
+@pytest.mark.parametrize("kd", [16, 17, 750])
+@pytest.mark.parametrize("nv", [1, 64, 65, 129, 1536, 1537, 1600, 1639, 1700])
+def test_factor_count_on_z_planes_matches_plain(cuda, nv, kd, precision, layout):
+    """B5 with Z handed over as its planes (HM.factor_planes' form) against
+    its plain version on the same planes, at every width of the last column
+    tile (64: nv 1, 64, 1537, 1600; 128: 65, 1639; 192: 129, 1700; 256:
+    1536), a bf16 Xv_b in the engine's padded rows and as the unpadded
+    transposed view: integer counts equal, Gaussian within ACC_TOL or two
+    flipped near-ties; one launch each, and the same counts as the float32
+    Z they were rounded from."""
+    name = "streamed_acc_from_factors"
+    planes = HM.PLANES[precision]
+    for kind in ("integer", "gaussian"):
+        Xv_b, Z = _precision_inputs(name, kind, 3, nv, kd, cuda)
+        Xv_b = _edge_first(name, Xv_b, layout)
+        z_planes = HM.bf16_planes(Z, planes)
+        before = HM.launches_by_precision[name][precision]
+        got = HM.streamed_acc_from_factors(Xv_b, z_planes, precision)
+        torch.cuda.synchronize()
+        assert HM.launches_by_precision[name][precision] == before + 1
+        ref = HM.streamed_acc_from_factors_plain(Xv_b, z_planes, precision)
+        if kind == "integer":
+            torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+        else:
+            tol = max(ACC_TOL, 2.0 / max(nv * nv - nv, 1))
+            torch.testing.assert_close(got, ref, rtol=0, atol=tol, equal_nan=True)
+        torch.testing.assert_close(got, HM.streamed_acc_from_factors(Xv_b, Z, precision),
+                                   rtol=0, atol=0, equal_nan=True)  # nv = 1: 0 / 0
+
+
+def test_factor_count_refuses_z_planes_a_tensor_map_cannot_describe(cuda):
+    """Z's planes must be in padded_planes' layout (rows of whole 64-column
+    blocks): contiguous rows of 300 columns raise, with the shapes."""
+    Xv_b = torch.zeros((2, 300, 16), dtype=torch.bfloat16, device=cuda)
+    Z = torch.zeros((1, 2, 16, 300), dtype=torch.bfloat16, device=cuda)
+    assert not HM.planes_eligible(Z)
+    with pytest.raises(ValueError, match=r"\(1, 2, 16, 300\)"):
+        HM.streamed_acc_from_factors(Xv_b, Z, "default")
+
+
+def test_factor_planes_on_the_card_are_the_z_gemm(cuda):
+    """factor_planes on the card is inv_times_u_on_card, B4's Z GEMM: the
+    same planes bit for bit, and not a launch of any streamed kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, k, nv = 3, 750, 300
+    inv = torch.randn((b, k, k), generator=gen, device=cuda) / k
+    U = HM.padded_empty(b, k, nv, cuda).copy_(torch.randn((b, k, nv), generator=gen,
+                                                          device=cuda))
+    for precision in ("default", "high"):
+        before = {n: dict(v) for n, v in HM.launches_by_precision.items()}
+        Z = HM.factor_planes(inv, U, precision)
+        assert HM.launches_by_precision == before
+        assert HM.planes_eligible(Z) and Z.shape == (HM.PLANES[precision], b, k, nv)
+        assert torch.equal(Z, HM.inv_times_u_on_card(inv, U, precision))
+
+
+def test_fused_pallas_equals_fused_inv_on_a_gate_block(cuda):
+    """One block of the gate's shapes (N = 8192 training rows, K = 750, 6
+    alphas x 5 folds; 16 vertices) with bf16 selection storage: fused-pallas
+    (Z's planes from factor_planes, then B5) and fused-inv (the same Z GEMM
+    inside B4's call, then the same count) select the same alphas with the
+    same CV scores, bit for bit, at default and high."""
+    from multimodal_decoding_tpu_torch.decoding import searchlight_engine as TE
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n, b, k, d = 8192, 16, 750, 64
+    Y = torch.randn((n, d), generator=gen, device=cuda)
+    W = torch.randn((b, d, k), generator=gen, device=cuda) * 0.02
+    X = torch.einsum("nd,bdk->nbk", Y, W) + torch.randn((n, b, k), generator=gen, device=cuda)
+    alphas = torch.tensor([1e2, 1e3, 1e4, 1e5, 1e6, 1e7], device=cuda)
+    for precision in ("default", "high"):
+        kw = dict(cv_solver="schur-pallas", cv_precision=precision, cv_dtype=torch.bfloat16)
+        _, best_p, scores_p = TE.fit_block_cv(X, Y, alphas, cv_scorer="fused-pallas", **kw)
+        _, best_i, scores_i = TE.fit_block_cv(X, Y, alphas, cv_scorer="fused-inv", **kw)
+        assert torch.equal(best_p, best_i), precision
+        assert torch.equal(scores_p, scores_i), precision

@@ -15,10 +15,17 @@ part off are meaningless: only its time is read.
     no_mma_l2       no_mma with every item reading vertex 0's A and Bm, so
                     every load hits L2
     no_mma_b_only   no_mma with Bm's boxes only (32 of a stage's 48 KB)
+    no_epilogue     the count skipped: no diagonal, no comparisons (the
+                    wgmmas, their drain and the loads stay)
     promotion_128   128-byte L2 promotion in place of 256
+    a_evict_last    A's loads with an evict-last L2 policy (A is read again
+                    for every column tile of its item)
 
 Each variant runs twice, in turns; one JSON line per (turn, variant,
-precision) gives both counts' CUDA-event ms (10 samples after 2 warm-ups).
+precision) gives both counts' CUDA-event ms (10 samples after 2 warm-ups),
+and streamed_acc_from_factors' with the same ``Xv_b`` in vertex-major rows
+([B, nv, K] padded: A's rows 1.5 KB apart instead of the fold slice's
+192 KB).
 Run from the root of the repo on a machine with a CUDA device and nvcc:
 
     python3 tools/tc_ablation.py
@@ -44,11 +51,28 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from multimodal_decoding_tpu_torch.ops import _cuda_build  # noqa: E402
 
-_WGMMA = "wgmma_256(acc, smem_desc"
+_WGMMA = "wgmma<W>(acc, smem_desc"
 _TX = "mbar_expect_tx(full + stage, kTx);"
 _LOAD_A = "tma_load(sa + p * kABytes, &map_a, k0, i0, b, p"
 _LOAD_B = "tma_load(sb + p * kBBytes, &map_b, 0, k0, j0 / 64, bb, p"
 _PROMOTION = "CU_TENSOR_MAP_L2_PROMOTION_L2_256B"
+_TMA5 = "\n// The same for a 5-d tensor map."
+_PRODUCER = "if (ptid != 0) return;  // one thread issues the loads"
+_HINTED_LOAD = """
+// tma_load with an L2 cache policy.
+__device__ __forceinline__ void tma_load_hint(uint32_t dst, const CUtensorMap* map, int c0,
+                                              int c1, int c2, int c3, uint64_t* bar,
+                                              uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+"""
+_DIAG = "if (t == 0) {  // the diagonal tile: the thread holding"
+_COUNT = "if (j0 + col < g.n) count += acc[i] < (((i >> 1) & 1) ? d1 : d0) ? 1 : 0;"
 
 
 def _sub(source: str, old: str, new: str, count: int = 1) -> str:
@@ -69,8 +93,16 @@ def variants(source: str) -> dict:
                           _LOAD_B, _LOAD_B.replace("bb, p", "0, p")),
         "no_mma_b_only": _sub(_sub(no_mma, _TX, "mbar_expect_tx(full + stage, PB * kBBytes);"),
                               _LOAD_A, "if (0) " + _LOAD_A),
+        "no_epilogue": _sub(_sub(source, _DIAG, _DIAG.replace("t == 0", "0")), _COUNT, ""),
         # both tensor maps, A's and Bm's
         "promotion_128": _sub(source, _PROMOTION, _PROMOTION.replace("256B", "128B"), count=2),
+        "a_evict_last": _sub(_sub(_sub(source, _TMA5, _HINTED_LOAD + _TMA5), _PRODUCER,
+                                  _PRODUCER + "\n    uint64_t policy;\n    asm volatile("
+                                  "\"createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\" "
+                                  ": \"=l\"(policy));"),
+                             _LOAD_A + ", full + stage);",
+                             _LOAD_A.replace("tma_load(", "tma_load_hint(")
+                             + ", full + stage, policy);"),
     }
 
 
@@ -106,8 +138,10 @@ def main(argv=None) -> int:
 
     b, nv, k, d = 128, 1639, 750, 1024
     gen = torch.Generator(device="cuda").manual_seed(0)
-    Xv_b = HM.padded_copy(torch.randn((nv, b, k), generator=gen, device="cuda"),
-                          torch.bfloat16).permute(1, 0, 2)
+    X = torch.randn((nv, b, k), generator=gen, device="cuda")
+    Xv_b = HM.padded_copy(X, torch.bfloat16).permute(1, 0, 2)
+    Xv_rows = HM.padded_copy(X.permute(1, 0, 2), torch.bfloat16)  # rows 1.5 KB apart
+    del X
     Z = torch.randn((b, k, nv), generator=gen, device="cuda")
     preds = torch.randn((b, nv, d), generator=gen, device="cuda").to(torch.bfloat16)
     y_unit = HM._unit_rows(torch.randn((nv, d), generator=gen, device="cuda"))
@@ -142,6 +176,9 @@ def main(argv=None) -> int:
                     "turn": turn, "variant": name, "precision": precision,
                     "factors_count_ms": ms(lambda: HM._count_tc(
                         "streamed_acc_from_factors", Xv_b, z_p, False, b, nv, k, precision)),
+                    "factors_count_vertex_rows_ms": ms(lambda: HM._count_tc(
+                        "streamed_acc_from_factors", Xv_rows, z_p, False, b, nv, k,
+                        precision)),
                     "pairwise_count_ms": ms(lambda: HM._count_tc(
                         "streamed_pairwise_acc", preds, y_p, True, b, nv, d, precision)),
                 }), flush=True)
