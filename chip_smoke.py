@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Start-up proof of the PyTorch port (multimodal_decoding_tpu_torch) on one GPU.
 
 Run from the root of a checkout, with no arguments:
@@ -19,8 +18,9 @@ Phases, each printing one JSON line with its seconds:
              ratio, library_ratio = kernel ms / library ms), and the least
              time the card could take (bound).  chol_inv_panel runs at
              [128, 188|187] (the searchlight's schur-pallas base blocks),
-             [128, 64] (the blocked_spd_inverse panel) and [6, 103|102] (the
-             whole-brain CV's base blocks).  The
+             [128, 64] (the blocked_spd_inverse panel), [6, 103|102] (the
+             whole-brain CV's base blocks) and [128, 101|100|99] (radius
+             mode's base blocks at fsaverage7 density).  The
              streamed-count kernels must give counts equal to the plain
              version on integer-valued inputs and accuracies within 1e-5 on
              Gaussian ones; streamed_acc_from_inv's Z GEMM and count are also
@@ -45,7 +45,36 @@ Phases, each printing one JSON line with its seconds:
              only cut from production's 163,842), with --n-neighbors 750,
              the 6-alpha CV and 100 null shuffles; checks the artifacts, the
              planted-signal accuracies and that only chol_inv_panel ran.
-6. wb_gate - the whole-brain selection gate: 16 planted-signal decode problems
+6. radius  - radius mode at fsaverage7's density: radius_adjacency on the card
+             over icosphere(7) (163,842 vertices, radius 100) at the radius
+             whose balls hold ~750 vertices on average (derived here: the
+             uniform-sphere estimate corrected by exact host counts), its
+             seconds, Kmean, Kmax and pad waste Kmax/Kmean, and each
+             vertex's count against scipy's float64 cKDTree (every flipped
+             neighbour within float32 rounding of r^2); two blocks of B=128
+             of those neighbourhoods (vertices along a meridian, so the
+             gate's pole-to-pole signal grades each block), padded to Kmax
+             and masked, through searchlight_block_cv_with_null at full
+             width against the same vertices with
+             the pad columns dropped, one call per count: CV grids within
+             1e-5, alphas equal but at a selection near-tie (the masked
+             pick first within the tie band once the column drop's grid
+             moves by twice the vertex's grid delta), and where the alphas
+             agree each metric's final scores within 1e-4 and nulls equal
+             unless its rank counts hold a float64 near-tie (< 1e-5; the
+             excused vertices' gaps printed);
+             chol_inv_panel's launches and shapes (Kmax halves three times
+             to [128, ~100]: 240 a block), held to its plain version on
+             the path's own masked inputs; the null gathers "gather",
+             "onehot" and "onehot-bf16" bit for bit (whole blocks, and the
+             null scoring alone at P = 100 and 1000), each one's ms, and the
+             masked block's ms beside the n-neighbours block at K = 750;
+             then the searchlight CLI with --radius on phase cli's data set
+             (its own if cli did not run) at Kmean ~750: the results path
+             radius_<r>, the JAX package's pickle keys, int32 n_neighbors,
+             distances None, exact launches, vertices/s, and its first block
+             held to the column drop of the inputs the CLI read.
+7. wb_gate - the whole-brain selection gate: 16 planted-signal decode problems
              (n=8192 stimuli, f=16384 features, D=1024, noise swept from strong
              signal to near-noise), each CV'd by ridge_cv_dual with the strict
              Cholesky oracle and with the shipped "schur-pallas" selection:
@@ -54,7 +83,7 @@ Phases, each printing one JSON line with its seconds:
              chol_inv_panel launches per fast CV (64 base blocks of PB 102/103
              per fold x 5 folds), every one a contiguous [6, PB, PB] tensor on
              the card and none through the plain version.
-7. precision - the TPU's reduced-precision selection path at full width (the
+8. precision - the TPU's reduced-precision selection path at full width (the
              gate's problem: N=8192, 140 test, 3 imagery, K=750, D=1024, B=128,
              6 alphas x 5 folds, 100 shuffles): each streamed-count kernel at
              "default" (one bf16 pass on the tensor cores: wgmma on bf16
@@ -95,17 +124,17 @@ Phases, each printing one JSON line with its seconds:
              streamed_acc_from_factors, Z as float32 and as its planes, and
              the rounding kernel on ragged views.
              It needs phases cli and wb_gate before it.
-8. wb      - one whole-brain decode at production scale: N=8192 train, 140
+9. wb      - one whole-brain decode at production scale: N=8192 train, 140
              test, 3 imagery, V=327,684 (both fsaverage7 hemispheres), D=1024,
              6 alphas x 5 folds, from host numpy betas (10.7 GB) streamed into
              the gram; prints seconds per stage (gram and query kernels, CV
              selection, refit, predictions, score family) and the launches.
-9. wb_cli  - the port's whole-brain CLI in-process on a synthetic subject
+10. wb_cli - the port's whole-brain CLI in-process on a synthetic subject
              (N=8192, D=1024, both hemispheres of icosphere(4) with --surface:
              the vertex count is the only cut): results.p at the contract path
              with the JAX package's schema, planted-signal accuracies > 0.9, a
              rerun that skips, 320 chol_inv_panel launches and no other kernel.
-10. stats  - the group statistics at production width: seeded null scores
+11. stats  - the group statistics at production width: seeded null scores
              [6 subjects, 100 nulls, 163,842 vertices] of the 4 member metrics
              of mod_agnostic_and_cross on both hemispheres (with NaN and
              degenerate vertices), swept through the port's null sweep
@@ -115,7 +144,7 @@ Phases, each printing one JSON line with its seconds:
              float64 numpy t-map (equal NaN patterns, max |dt| <= 1e-5 max |t|);
              host TFCE (native/tfce.cpp) over the first 512 min-maps of each
              hemisphere on icosphere(7) edges: ms a map, threads, projection.
-11. study  - the port's study CLI in-process on 6 synthetic planted-signal
+12. study  - the port's study CLI in-process on 6 synthetic planted-signal
              subjects (both hemispheres of icosphere(3), 256 train stimuli,
              K=375 neighbours, D=1024, 100 nulls each, the 6-alpha CV): every
              artifact at the JAX package's paths, significant vertices, a
@@ -125,7 +154,7 @@ Phases, each printing one JSON line with its seconds:
              same null_max and p-values, and the export CLI writing every
              subject, average and min-composite GIfTI map, each read back
              equal to the map it came from.
-12. ingest - streamed betas ingestion at production width, nothing cut: one
+13. ingest - streamed betas ingestion at production width, nothing cut: one
              fsaverage7 hemisphere (8,192 train + 140 test + 3 imagery rows x
              163,842 vertices, 1% NaN columns, a planted signal from a seed)
              written as the betas npz caches (5.46 GB, row chunk by row
@@ -138,7 +167,7 @@ Phases, each printing one JSON line with its seconds:
              RSS growth of each path; then 2 runner blocks (B = 128, K = 750,
              6 alphas, 100 nulls) from each tensor: equal outputs, 240
              chol_inv_panel launches from the streamed one.
-13. dist   - the multi-GPU paths on a world of one NCCL rank (one card holds
+14. dist   - the multi-GPU paths on a world of one NCCL rank (one card holds
              one rank): the gate's 2 blocks through run_searchlight(mesh=...)
              against mesh=None (alphas and nulls equal, scores within rtol
              2e-5 / atol 2e-6, 240 launches), the whole-brain CLI with
@@ -149,7 +178,7 @@ Phases, each printing one JSON line with its seconds:
              selection storage at "default"; wall seconds of each sharded
              run beside its unsharded one.  It needs phases wb_cli and study
              before it in the same call.
-14. analyses - the analyses on the card: the Monte-Carlo t calibration at
+15. analyses - the analyses on the card: the Monte-Carlo t calibration at
              the reference's production shape (10,000 permutations x 6
              subjects x (73 latents + 3 predictions) x 1024 = 4.67e9
              normals), its draws held bit-equal to the numpy draws on one
@@ -161,7 +190,7 @@ Phases, each printing one JSON line with its seconds:
              apart and run_all_conditions(n_seeds=10) projected; CSLS on
              [140, 1024] x [140, 1024], knn 100, against the CPU (1e-5);
              no hand-written kernel runs on this path.
-15. extract - feature extraction: the random-imagebind control built on the
+16. extract - feature extraction: the random-imagebind control built on the
              card from seed 0 through the extractor registry at
              ImageBind-Huge's full width (~0.98e9 weights, drawn as the JAX
              package draws them; 1.05e6 sampled weights bit-equal to numpy
@@ -173,6 +202,16 @@ Phases, each printing one JSON line with its seconds:
              the data layer, the Gabor bank on 100 images of 256 x 256
              (against float64 and scipy.ndimage) and motion energy on 100 of
              96 x 96 (against float64); no hand-written kernel runs on it.
+
+17. examples - the port's examples (multimodal_decoding_tpu_torch/examples) on
+             the card at their own sizes, full_pipeline (steps 1-3; the
+             figure only where matplotlib is installed), model_comparison,
+             roi_decoding and nearest_neighbor_ranking (on the card run's
+             model_comparison pickle), each against a --device cpu run of
+             the port in this phase: the same printed lines (the numbers
+             included) once temporary paths, the device tag and timings are
+             spelled alike; chol_inv_panel launched on the card by the
+             first three, no kernel by the CPU runs.
 
 On request, ``--phases build,profile [--scorer fused-pallas] [--precision
 default]`` breaks one main-path block step down by kernel (torch.profiler;
@@ -203,8 +242,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "gate", "scorers", "cli", "wb_gate", "precision", "wb", "wb_cli",
-          "stats", "study", "ingest", "dist", "analyses", "extract")
+PHASES = ("build", "kernel", "gate", "scorers", "cli", "radius", "wb_gate", "precision", "wb",
+          "wb_cli", "stats", "study", "ingest", "dist", "analyses", "extract", "examples")
 EXTRA_PHASES = ("profile", "wb_profile", "flips")  # run on request: --phases build,profile
 DEVICE = "cuda"
 
@@ -240,6 +279,9 @@ WB_NOISE = 24.0  # the decode phase's noise per vertex; the signal's is 1
 # 5 folds x 64 base blocks: n_tr = 6553|6554 halves six times to PB 102|103
 WB_LAUNCHES = 320
 WB_BASE_SHAPES = [(6, 103), (6, 102)]  # chol_inv_panel [A=6, PB, PB] on that path
+# radius mode at fsaverage7 density: Kmax ~ 800 halves three times to ~100
+# (Kmax 804 at r = 13.47 on icosphere(7) gives 101|100; 797-800 give 100|99)
+RADIUS_BASE_SHAPES = [(B, 101), (B, 100), (B, 99)]
 # group statistics at production width: subjects, nulls a subject, fsaverage7
 # vertices a hemisphere, group permutations and the sweep's chunk
 ST_S, ST_P, ST_V, ST_GROUP, ST_CHUNK = 6, 100, 163_842, 10_000, 256
@@ -325,6 +367,20 @@ SOLVER_BANDS = {"tri-inv": 5e-5, "schur-cb16": 2e-2, "schur-cb16-ns": 2e-4}
 EDGE_NV = (1, 64, 65, 129, 1536, 1537, 1600, 1639, 1700)
 PRECISION_SCORERS = {"default": ("xla", "pallas", "fused-pallas", "fused-inv"),
                      "high": ("pallas", "fused-pallas", "fused-inv")}
+# radius mode at fsaverage7's density: icosphere(7) (163,842 vertices, radius
+# 100) at the radius whose balls hold ~750 vertices on average, the
+# reference's patch size; RD_SAMPLE vertices' exact counts refine the radius
+RD_ICO, RD_KMEAN, RD_SAMPLE = 7, 750, 4096
+# float32 |q|^2 - 2 q.p + |p|^2 (io/surface.py::_sq_dists) against a float64
+# count: a neighbour may flip where |d^2 - r^2| is within a few float32
+# roundings of the terms' magnitude (|q| + |p|)^2
+RD_FLIP_ULPS = 8
+# nulls of a masked block equal the column drop's except at a vertex whose
+# rank counts compare two float64 distances closer than this (a near-tie)
+RD_TIE_GAP = 1e-5
+# the JAX package's searchlight results pickle (decoding/searchlight.py:425-435)
+SL_RESULT_KEYS = ("nan_locations", "adjacency", "n_neighbors", "distances", "score_maps",
+                  "scores", "best_alpha", "elapsed_s", "vertices_per_sec")
 
 
 def emit(obj) -> None:
@@ -439,7 +495,7 @@ def kernel_chol_inv_panel() -> list:
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
 
     shapes = []
-    for b, pb in [(B, 188), (B, 187), (B, 64), *WB_BASE_SHAPES]:
+    for b, pb in [(B, 188), (B, 187), (B, 64), *WB_BASE_SHAPES, *RADIUS_BASE_SHAPES]:
         A = spd_batch(b, pb, ALPHAS[0], seed=pb)
         got = H.chol_inv_panel(A)
         ref = H.chol_inv_panel_plain(A)
@@ -887,41 +943,63 @@ def phase_profile(scorer: str = "xla", precision: str = "highest") -> dict:
             "port_kernels": port}
 
 
-def phase_cli() -> dict:
-    import numpy as np
-    import torch
-
-    from multimodal_decoding_tpu_torch import config
-    from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
-    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+def cli_dataset(root: str) -> dict:
+    """Phase cli's synthetic subject under ``root``: N_TRAIN train stimuli,
+    D-wide latents, the left hemisphere of icosphere(4) (radius 100) as the
+    fsaverage7 inflated mesh.  Returns make_synthetic_dataset's info with
+    ``root``, ``mesh`` and ``dataset_s``; use_dataset points the config at it."""
     from multimodal_decoding_tpu_torch.data.synthetic import make_synthetic_dataset
-    from multimodal_decoding_tpu_torch.io import artifacts
     from multimodal_decoding_tpu_torch.io.surface import icosphere, write_freesurfer_geometry
-    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
-    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
-    from multimodal_decoding_tpu_torch.ops import metrics as M
 
-    root = WS.dir("cli")  # kept for phase precision's --fast-math run
     t0 = time.time()
     mesh = icosphere(4)
     info = make_synthetic_dataset(root, n_train=N_TRAIN, n_vertices=mesh.n_vertices,
                                   latent_dim=D, model="imagebind", hemis=["left"])
-    config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
-    config.LATENT_FEATURES_DIR = info["features_dir"]
-    config.BETAS_CACHE_DIR = os.path.join(root, "betas_cache")
-    _load_feature_pickle.cache_clear()
     mesh_dir = os.path.join(root, "surfaces", "fsaverage7")
     os.makedirs(mesh_dir)
     write_freesurfer_geometry(os.path.join(mesh_dir, "lh.inflated"), mesh)
-    dataset_s = time.time() - t0
+    return {**info, "root": root, "mesh": mesh, "dataset_s": time.time() - t0}
+
+
+def use_dataset(info: dict) -> None:
+    """Point the port's config at a data set of cli_dataset."""
+    from multimodal_decoding_tpu_torch import config
+    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
+
+    config.FMRI_STIM_INFO_DIR = info["stim_info_dir"]
+    config.LATENT_FEATURES_DIR = info["features_dir"]
+    config.BETAS_CACHE_DIR = os.path.join(info["root"], "betas_cache")
+    _load_feature_pickle.cache_clear()
+
+
+def searchlight_argv(info: dict, out_dir: str, *mode) -> list:
+    """The searchlight CLI's arguments on a cli_dataset at full width, with
+    ``mode`` (--n-neighbors K or --radius r)."""
+    return ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
+            "--subjects", "sub-01", "--model", "imagebind", "--hemis", "left",
+            *mode, "--l2-alphas", *[str(a) for a in ALPHAS],
+            "--create-null-distr", "--n-permutations-per-subject", str(P),
+            "--block-size", str(B), "--mesh-dir", os.path.join(info["root"], "surfaces"),
+            "--out-dir", out_dir, "--device", DEVICE]
+
+
+def phase_cli() -> dict:
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
+    from multimodal_decoding_tpu_torch.io import artifacts
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+
+    root = WS.dir("cli")  # kept for phases radius and precision (--fast-math)
+    info = cli_dataset(root)
+    use_dataset(info)
+    dataset_s = info["dataset_s"]
 
     out_dir = os.path.join(root, "sl")
-    argv = ["--betas-dir", os.path.join(info["betas_dir"], "surface"),
-            "--subjects", "sub-01", "--model", "imagebind", "--hemis", "left",
-            "--n-neighbors", str(K), "--l2-alphas", *[str(a) for a in ALPHAS],
-            "--create-null-distr", "--n-permutations-per-subject", str(P),
-            "--block-size", str(B), "--mesh-dir", os.path.join(root, "surfaces"),
-            "--out-dir", out_dir, "--device", DEVICE]
+    argv = searchlight_argv(info, out_dir, "--n-neighbors", str(K))
     H.reset_launches()
     HM.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -964,15 +1042,483 @@ def phase_cli() -> dict:
             "launches": launches}
 
 
+def radius_for(coords, kmean: int) -> float:
+    """The ball radius (to 0.01) whose balls hold ~``kmean`` of ``coords`` on
+    average: the uniform-sphere estimate 2 R sqrt(kmean / V) (a ball of chord
+    radius r on a sphere of radius R holds the share r^2 / 4R^2 of its
+    area), corrected once by exact host counts on RD_SAMPLE vertices."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(coords, dtype=np.float64)
+    r = 2.0 * float(np.sqrt((pts ** 2).sum(1)).mean()) * (kmean / len(pts)) ** 0.5
+    rng = np.random.default_rng(0)
+    sample = pts[rng.choice(len(pts), min(RD_SAMPLE, len(pts)), replace=False)]
+    n = cKDTree(pts).query_ball_point(sample, r, return_length=True, workers=-1).mean()
+    return round(r * (kmean / n) ** 0.5, 2)
+
+
+def radius_count_flips(coords, r: float, idx, mask, counts) -> dict:
+    """The card's radius counts (float32 |q|^2 - 2 q.p + |p|^2 <= r^2) against
+    float64 host counts (scipy's cKDTree on the same float32 coordinates).
+    Every neighbour that one side has and the other lacks must lie within
+    RD_FLIP_ULPS float32 roundings of the terms' magnitude from r^2."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(coords, dtype=np.float32).astype(np.float64)
+    tree = cKDTree(pts)
+    t0 = time.time()
+    host = tree.query_ball_point(pts, r, return_length=True, workers=-1)
+    host_s = time.time() - t0
+    differ = np.nonzero(host != counts)[0]
+    norms = np.sqrt((pts ** 2).sum(1))
+    eps = float(np.finfo(np.float32).eps)
+    gaps, worst = [], 0.0
+    for v in differ:
+        card = set(idx[v][mask[v]].tolist())
+        for p in card.symmetric_difference(tree.query_ball_point(pts[v], r)):
+            gap = abs(float(((pts[v] - pts[p]) ** 2).sum()) - r * r)
+            tol = RD_FLIP_ULPS * eps * (norms[v] + norms[p]) ** 2
+            gaps.append(gap)
+            worst = max(worst, gap / tol)
+    out = {"host_count_s": host_s, "vertices_differing": int(len(differ)),
+           "neighbours_flipped": len(gaps),
+           "max_abs_d2_minus_r2": max(gaps, default=0.0),
+           "max_gap_over_float32_tolerance": worst}
+    if worst > 1.0:
+        raise AssertionError(f"radius counts: a neighbour flips farther from r^2 than float32 "
+                             f"rounding explains: {out}")
+    return out
+
+
+class RadiusProblem:
+    """Block inputs on the card over a compact set of columns, and the
+    reference of the JAX package's test_radius_mask_equals_column_drop: the
+    same block step on each count's vertices with the pad columns dropped."""
+
+    def __init__(self, X_all, Y_train, Y_test, Y_imag):
+        import numpy as np
+        import torch
+
+        from multimodal_decoding_tpu_torch.data.stimuli import (
+            TEST_STIM_TYPES,
+            create_null_distr_shuffled_indices,
+        )
+        from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+
+        def dev(a, dtype=torch.float32):  # as run_searchlight places its inputs
+            return torch.as_tensor(np.asarray(a), device=DEVICE).to(dtype)
+
+        self.X_all, self.Ytr, self.Yte, self.Yim = (dev(a) for a in (X_all, Y_train, Y_test,
+                                                                     Y_imag))
+        self.alphas = dev(ALPHAS)
+        self.shuffles = dev(np.stack(create_null_distr_shuffled_indices(P)), torch.int64)
+        self.stim_types = TEST_STIM_TYPES
+        self.layout = E.TestLayout.from_stim_types(TEST_STIM_TYPES)
+
+    def block(self, idx, mask, der, shuffles=None, **kw) -> tuple:
+        """searchlight_block_cv_with_null on the card: (main, null) as numpy."""
+        import torch
+
+        from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+
+        main, null = E.searchlight_block_cv_with_null(
+            self.X_all, self.Ytr, self.Yte, self.Yim, torch.as_tensor(idx, device=DEVICE),
+            None if mask is None else torch.as_tensor(mask, device=DEVICE), self.alphas,
+            self.shuffles if shuffles is None else shuffles,
+            torch.as_tensor(der, device=DEVICE), layout=self.layout, n_train=N_TRAIN,
+            n_test=N_TEST, cv_solver="schur-pallas", **kw)
+        return ({k: v.cpu().numpy() for k, v in main.items()},
+                {k: v.cpu().numpy() for k, v in null.items()})
+
+    def cv_grid(self, idx, mask):
+        """fit_block_cv's CV scores [V, A] (the selection's grid) on the card."""
+        import torch
+
+        from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+
+        Xtr = E.gather_patches(self.X_all[:N_TRAIN], torch.as_tensor(idx, device=DEVICE),
+                               None if mask is None else torch.as_tensor(mask, device=DEVICE))
+        return E.fit_block_cv(Xtr, self.Ytr, self.alphas, cv_solver="schur-pallas")[2].cpu().numpy()
+
+    def column_drop(self, idx, counts, der) -> tuple:
+        """The block step, and the CV grid, with each vertex's first
+        ``counts`` neighbours only, one call per count: (main, null, grid) in
+        the rows of ``idx``."""
+        import numpy as np
+
+        main, null, grid = {}, {}, np.empty((len(idx), len(ALPHAS)), np.float32)
+        for c in np.unique(counts):
+            rows = np.nonzero(counts == c)[0]
+            m, n = self.block(idx[rows, :c], None, der[rows])
+            grid[rows] = self.cv_grid(idx[rows, :c], None)
+            for out, got in ((main, m), (null, n)):
+                for k, v in got.items():
+                    out.setdefault(k, np.empty((len(idx),) + v.shape[1:], v.dtype))[rows] = v
+        return main, null, grid
+
+    def near_tie_gaps(self, idx, counts, alphas) -> dict:
+        """{metric: [V]}: each vertex's least float64 gap between two
+        distances that metric's rank counts compare (all pairs of a row of
+        its distance matrix), at the vertex's selected alpha."""
+        import numpy as np
+        import torch
+
+        from multimodal_decoding_tpu_torch.ops import metrics as M
+
+        cap = torch.as_tensor(self.stim_types == "caption", device=DEVICE)
+        Y = [t.double() for t in (self.Ytr, self.Yte, self.Yim)]
+        whole = torch.cat([Y[2], Y[1]])
+
+        def std(x):
+            s = x.std(dim=-2, unbiased=False, keepdim=True)
+            return (x - x.mean(dim=-2, keepdim=True)) / torch.where(s == 0, 1.0, s)
+
+        def gap(p, l):
+            d = 1 - (p / p.norm(dim=-1, keepdim=True)) @ (l / l.norm(dim=-1, keepdim=True)).T
+            g = (d[:, :, None] - d[:, None, :]).abs()
+            g.diagonal(dim1=-2, dim2=-1).fill_(float("inf"))
+            return float(g.min())
+
+        gaps = {}
+        for nb, c, a in zip(idx, counts, alphas):
+            cols = torch.as_tensor(nb[:c], device=DEVICE)
+            X = self.X_all[:, cols].double()
+            A = X[:N_TRAIN]
+            W = torch.linalg.solve(A.T @ A + float(a) * torch.eye(int(c), dtype=A.dtype,
+                                                                  device=DEVICE), A.T @ Y[0])
+            pt, pi = X[N_TRAIN:N_TRAIN + N_TEST] @ W, X[N_TRAIN + N_TEST:] @ W
+            pc, pm = std(pt[cap]), std(pt[~cap])
+            for m, g in ((M.ACC_CAPTIONS, gap(pc, Y[1][cap])), (M.ACC_IMAGES, gap(pm, Y[1][~cap])),
+                         (M.ACC_CROSS_CAPTIONS_TO_IMAGES, gap(pc, Y[1][~cap])),
+                         (M.ACC_CROSS_IMAGES_TO_CAPTIONS, gap(pm, Y[1][cap])),
+                         (M.ACC_IMAGERY, gap(std(pi), Y[2])),
+                         (M.ACC_IMAGERY_WHOLE_TEST, gap(std(pi), whole)),
+                         (M.ACC_IMAGERY + "_no_std", gap(pi, Y[2])),
+                         (M.ACC_IMAGERY_WHOLE_TEST + "_no_std", gap(pi, whole))):
+                gaps.setdefault(m, []).append(g)
+        return {m: np.asarray(v) for m, v in gaps.items()}
+
+    def hold_to_column_drop(self, main, null, idx, counts, der, where: str) -> dict:
+        """``main``/``null`` of masked blocks against column_drop.
+
+        The CV grids agree within CV_SCORE_DELTA_MAX (the gate's bar).  The
+        alphas are equal but at a selection near-tie: a vertex may pick
+        another alpha only where, the column drop's grid moved by twice that
+        vertex's grid delta, the masked pick is the first within
+        ALPHA_TIE_TOL of the top.  At every vertex whose alphas agree, each
+        metric's final scores are within SCORE_DELTA_MAX and its nulls equal
+        unless its rank counts compare two float64 distances closer than
+        RD_TIE_GAP (gap 0: duplicate latent rows, as imagery and test
+        stimuli share some): there two float32 sums may order the pair
+        differently, which moves the accuracy by a count (1/4830 for
+        captions, 1/6 for imagery).  The excused vertices' gaps are printed.
+        """
+        import numpy as np
+
+        from multimodal_decoding_tpu_torch.ops.ridge import ALPHA_TIE_TOL
+
+        ref_main, ref_null, ref_grid = self.column_drop(idx, counts, der)
+        real = np.arange(idx.shape[1])[None, :] < counts[:, None]
+        grid = np.concatenate([self.cv_grid(idx[lo:lo + B], real[lo:lo + B])
+                               for lo in range(0, len(idx), B)])
+        grid_delta = np.abs(grid - ref_grid).max(axis=1)  # [V]
+        picked = np.searchsorted(np.asarray(ALPHAS, np.float32), main["best_alpha"])
+        top = ref_grid.max(axis=1)
+        slack = ALPHA_TIE_TOL + 2 * grid_delta
+        near_tie_pick = ((ref_grid[np.arange(len(idx)), picked] >= top - slack)
+                         & np.array([np.all(g[:a] < t - ALPHA_TIE_TOL + 2 * e)
+                                     for g, a, t, e in zip(ref_grid, picked, top, grid_delta)]))
+        same = main["best_alpha"] == ref_main["best_alpha"]
+        differ = {m: same & (np.abs(main[m] - v) > SCORE_DELTA_MAX)
+                  for m, v in ref_main.items() if m != "best_alpha"}
+        for m, v in ref_null.items():
+            differ[m] = differ.get(m, False) | (same & (null[m] != v).any(axis=1))
+        rows = np.nonzero(np.any(list(differ.values()), axis=0))[0]
+        gaps = self.near_tie_gaps(idx[rows], counts[rows], ref_main["best_alpha"][rows])
+        excused = [float(gaps[m][i]) for m, d in differ.items()
+                   for i, v in enumerate(rows) if d[v]]
+        out = {"vertices": len(idx), "alpha_agreement": float(same.mean()),
+               "max_cv_score_delta": float(grid_delta.max()),
+               "other_alpha_at_a_selection_near_tie": int((~same & near_tie_pick).sum()),
+               "max_final_score_delta": max(float(np.abs(main[m] - v)[same].max(initial=0.0))
+                                            for m, v in ref_main.items() if m != "best_alpha"),
+               "max_null_score_delta": max(float(np.abs(null[m] - v)[same].max(initial=0.0))
+                                           for m, v in ref_null.items()),
+               "vertices_differing": len(rows),
+               "differing_by_metric": {m: int(d.sum()) for m, d in differ.items() if d.any()},
+               "their_float64_gaps": [min(excused, default=None), max(excused, default=None)]}
+        fails = []
+        if out["max_cv_score_delta"] > CV_SCORE_DELTA_MAX:
+            fails.append(f"CV-score delta > {CV_SCORE_DELTA_MAX:g}")
+        if np.any(~same & ~near_tie_pick):
+            fails.append("an alpha differs where the selection holds no near-tie")
+        if any(g >= RD_TIE_GAP for g in excused):
+            fails.append(f"a score (final delta > {SCORE_DELTA_MAX:g}, or null) differs at a "
+                         f"vertex whose metric holds no near-tie (< {RD_TIE_GAP:g})")
+        if fails:
+            raise AssertionError(f"{where} against the column drop: {'; '.join(fails)}: {out}")
+        return out
+
+
+def radius_patch(coords, idx, mask, counts) -> dict:
+    """Two blocks of B vertices along the meridian x = 0, y > 0 from 80
+    degrees south to 80 north, interleaved so each block spans every
+    latitude (planted_problem grades the signal from pole to pole), their
+    neighbourhoods and K-nearest ones over the union of the columns they
+    read, renumbered into that union."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(coords, dtype=np.float64)
+    tree = cKDTree(pts)
+    # the 4B vertices nearest the meridian, then 2B of them evenly in z
+    sin_lat = pts[:, 2] / np.sqrt((pts ** 2).sum(1))
+    cand = np.nonzero((pts[:, 1] > 0) & (np.abs(sin_lat) < np.sin(np.radians(80.0))))[0]
+    cand = cand[np.argsort(np.abs(pts[cand, 0]), kind="stable")[:4 * B]]
+    cand = cand[np.argsort(pts[cand, 2], kind="stable")]
+    sel = cand[np.linspace(0, len(cand) - 1, 2 * B).round().astype(int)]
+    sel = np.concatenate([sel[0::2], sel[1::2]])
+    knn = tree.query(pts[sel], k=K)[1]
+    cols = np.unique(np.concatenate([idx[sel].ravel(), knn.ravel()]))
+    return {"cols": cols, "idx": np.searchsorted(cols, idx[sel]).astype(np.int32),
+            "mask": mask[sel], "counts": counts[sel],
+            "knn": np.searchsorted(cols, knn).astype(np.int32)}
+
+
+def radius_blocks(coords, idx, mask, counts) -> dict:
+    """Two masked blocks of the fsaverage7-density adjacency through the main
+    path's block step, held to the column drop; B1's launches and shapes;
+    the null gathers held to each other; ms beside the n-neighbours block."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.data.stimuli import create_null_distr_shuffled_indices
+    from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.parallel.searchlight_runner import (
+        draw_imagery_derangements,
+    )
+
+    patch = radius_patch(coords, idx, mask, counts)
+    planted = planted_problem(np.asarray(coords)[patch["cols"]], seed=2)
+    prob = RadiusProblem(np.concatenate(planted[:3]), *planted[3:])
+    kmax = idx.shape[1]
+    leaves = schur_base_blocks(kmax)
+    blocks = [slice(b * B, (b + 1) * B) for b in range(2)]
+    der = [draw_imagery_derangements(0, b, B, P) for b in range(2)]
+
+    H.reset_launches()
+    HM.reset_launches()
+    with PanelCalls(keep_inputs=True) as calls:
+        masked = [prob.block(patch["idx"][s], patch["mask"][s], d) for s, d in zip(blocks, der)]
+        torch.cuda.synchronize()
+    launches = H.launches
+    if any(HM.launches.values()):
+        raise AssertionError(f"the radius blocks launched streamed kernels: {HM.launches}")
+    expected = 2 * SCORER_CALLS_PER_BLOCK * len(leaves)
+    calls.check("radius blocks", shapes=[(B, pb) for pb in set(leaves)])
+    if launches != expected:
+        raise AssertionError(f"radius blocks: {launches} chol_inv_panel launches, expected "
+                             f"{expected} (leaves {leaves} of Kmax {kmax})")
+    # B1 on the path's own inputs (masked rows and columns: zero off the diagonal)
+    held = {}
+    for key, A in calls.inputs.items():
+        got, ref = H.chol_inv_panel(A), H.chol_inv_panel_plain(A)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        off = A.abs().sum(-1) - A.diagonal(dim1=-2, dim2=-1).abs()
+        held[key] = {"max_rel_err": rel, "masked_rows": int((off == 0).sum())}
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(f"chol_inv_panel {key} on the radius path's input: max rel "
+                                 f"err {rel:.3e} > {KERNEL_TOL:g}")
+
+    out = {"kmax": kmax, "patch_columns": len(patch["cols"]),
+           "counts": [int(patch["counts"].min()), int(patch["counts"].max())],
+           "chol_inv_panel": {"launches": launches, "per_block": launches // 2,
+                              "expected": expected, "shapes": calls.shapes,
+                              "held_to_plain": held}}
+    main = {k: np.concatenate([m[0][k] for m in masked]) for k in masked[0][0]}
+    null = {k: np.concatenate([m[1][k] for m in masked]) for k in masked[0][1]}
+    out["column_drop"] = prob.hold_to_column_drop(main, null, patch["idx"], patch["counts"],
+                                                  np.concatenate(der), "radius blocks")
+    alphas, n = np.unique(main["best_alpha"], return_counts=True)
+    out["best_alpha_counts"] = {f"{a:g}": int(c) for a, c in zip(alphas, n)}
+
+    # the null gathers: every block's nulls bit for bit; each mode's block ms
+    gathers = {}
+    for mode in E.NULL_GATHER_MODES:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = [prob.block(patch["idx"][s], patch["mask"][s], d, null_gather=mode)[1]
+               for s, d in zip(blocks, der)]
+        ms = (time.time() - t0) * 1e3 / len(blocks)
+        delta = max(float(np.abs(g[k] - m[1][k]).max()) for g, m in zip(got, masked)
+                    for k in g)
+        gathers[mode] = {"max_abs_null_delta": delta, "block_ms": ms}
+    # the null scoring alone on one block's predictions (CUDA events), at the
+    # run's P and at the JAX package's measured P = 1000
+    Xtr, Xte, Xim = E._split_patches(prob.X_all, torch.as_tensor(patch["idx"][blocks[0]],
+                                                                 device=DEVICE),
+                                     torch.as_tensor(patch["mask"][blocks[0]], device=DEVICE),
+                                     N_TRAIN, N_TEST)
+    W = E.fit_block_cv(Xtr, prob.Ytr, prob.alphas, cv_solver="schur-pallas")[0]
+    preds = (E.predict_block(Xte, W), E.predict_block(Xim, W))
+    for n_perms in (P, 1000):
+        shuffles = torch.as_tensor(np.stack(create_null_distr_shuffled_indices(n_perms)),
+                                   device=DEVICE)
+        d = torch.as_tensor(draw_imagery_derangements(0, 0, B, n_perms), device=DEVICE)
+        first = None
+        for mode in E.NULL_GATHER_MODES:
+            def score(mode=mode):
+                return E.score_and_null_block(*preds, prob.Yte, prob.Yim, prob.layout,
+                                              shuffles, d, null_gather=mode)[1]
+            nulls = score()
+            if first is None:
+                first = nulls
+            delta = max(float((nulls[k] - first[k]).abs().max()) for k in nulls)
+            gathers[mode][f"null_scoring_ms_p{n_perms}"] = cuda_time_ms(score, reps=9,
+                                                                        warmup=2)
+            gathers[mode][f"max_abs_null_delta_p{n_perms}"] = delta
+    bad = {m: g for m, g in gathers.items()
+           if any(v != 0 for k, v in g.items() if k.startswith("max_abs"))}
+    if bad:
+        raise AssertionError(f"one-hot null gathers differ from the gather: {bad}")
+    out["null_gathers"] = gathers
+    out["masked_block_ms"] = gathers["gather"]["block_ms"]
+    # the n-neighbours blocks at K on the same vertices, after one to warm up
+    prob.block(patch["knn"][blocks[0]], None, der[0])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for s, d in zip(blocks, der):
+        prob.block(patch["knn"][s], None, d)
+    out["n_neighbors_block_ms"] = (time.time() - t0) * 1e3 / len(blocks)
+    return out
+
+
+def radius_cli(info: dict) -> dict:
+    """The searchlight CLI with --radius on phase cli's data set, the radius
+    chosen for ~RD_KMEAN neighbours; its first block held to the column drop
+    of the same standardised inputs the CLI reads."""
+    import numpy as np
+
+    from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
+    from multimodal_decoding_tpu_torch.config import LatentFeatsConfig
+    from multimodal_decoding_tpu_torch.data.betas import get_fmri_surface_data
+    from multimodal_decoding_tpu_torch.data.features import get_latent_features
+    from multimodal_decoding_tpu_torch.data.preprocess import (
+        standardize_fmri_betas,
+        standardize_latents,
+    )
+    from multimodal_decoding_tpu_torch.io import artifacts
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops import metrics as M
+    from multimodal_decoding_tpu_torch.parallel.searchlight_runner import (
+        draw_imagery_derangements,
+    )
+
+    use_dataset(info)
+    r = radius_for(info["mesh"].coordinates, RD_KMEAN)
+    out_dir = WS.dir("radius_cli")
+    H.reset_launches()
+    HM.reset_launches()
+    t0 = time.time()
+    with PanelCalls() as calls:
+        paths = quiet(cli.main, searchlight_argv(info, out_dir, "--radius", str(r)))
+    cli_s = time.time() - t0
+    launches = H.launches
+    if len(paths) != 1 or any(HM.launches.values()):
+        raise AssertionError(f"radius CLI: results {paths}, streamed {HM.launches}")
+    res = artifacts.load_pickle(paths[0])
+    counts, adjacency = res["n_neighbors"], res["adjacency"]
+    kmax, n_vert = int(counts.max()), len(counts)
+    leaves = schur_base_blocks(kmax)
+    expected = -(-n_vert // B) * SCORER_CALLS_PER_BLOCK * len(leaves)
+    calls.check("radius CLI", shapes=[(B, pb) for pb in set(leaves)])
+    fails = []
+    if sorted(res) != sorted(SL_RESULT_KEYS):
+        fails.append(f"pickle keys {sorted(res)}, the JAX package's {sorted(SL_RESULT_KEYS)}")
+    if res["distances"] is not None or counts.dtype != np.int32 or counts.shape != (n_vert,):
+        fails.append(f"distances {type(res['distances'])}, n_neighbors {counts.dtype} "
+                     f"{counts.shape}")
+    if adjacency.shape != (n_vert, kmax):
+        fails.append(f"adjacency {adjacency.shape}, expected ({n_vert}, {kmax})")
+    if f"{os.sep}radius_{r}{os.sep}" not in paths[0]:
+        fails.append(f"results path {paths[0]} lacks radius_{r}")
+    means = {m: float(np.mean(res["score_maps"][m])) for m in (M.ACC_CAPTIONS, M.ACC_IMAGES)}
+    if not all(np.all(np.isfinite(v)) and v.shape == (n_vert,)
+               for v in res["score_maps"].values()) or min(means.values()) <= 0.9:
+        fails.append(f"score maps: means {means}")
+    if launches != expected:
+        fails.append(f"{launches} chol_inv_panel launches, expected {expected}")
+    if fails:
+        raise AssertionError(f"radius CLI: {'; '.join(fails)}")
+
+    # its first block against the column drop, from the inputs the CLI read
+    betas_dir = os.path.join(info["betas_dir"], "surface")
+    splits = [get_fmri_surface_data(betas_dir, "sub-01", s, hemi="left")[0]
+              for s in ("train", "test", "imagery")]
+    feats = LatentFeatsConfig("imagebind", verbose=False)
+    lats = [get_latent_features(feats, "sub-01", s) for s in ("train", "test", "imagery")]
+    prob = RadiusProblem(np.concatenate(standardize_fmri_betas(*splits)),
+                         *standardize_latents(*lats))
+    null = artifacts.load_null_scores_npz(os.path.join(os.path.dirname(paths[0]),
+                                                       "null_distr.npz"))
+    first = {m: v[:B] for m, v in res["score_maps"].items()}
+    first["best_alpha"] = res["best_alpha"][:B]
+    held = prob.hold_to_column_drop(first, {m: v[:B] for m, v in null.items()},
+                                    adjacency[:B], counts[:B],
+                                    draw_imagery_derangements(0, 0, B, P), "radius CLI block 0")
+    return {"radius": r, "kmean": float(counts.mean()), "kmax": kmax,
+            "kmin": int(counts.min()), "pad_waste": kmax / float(counts.mean()),
+            "vertices": n_vert, "vertices_per_sec": res["vertices_per_sec"], "cli_s": cli_s,
+            "results": os.path.relpath(paths[0], out_dir), "pickle_keys": sorted(res),
+            "mean_acc": means, "launches": launches, "expected_launches": expected,
+            "shapes": calls.shapes, "first_block_column_drop": held}
+
+
+def phase_radius() -> dict:
+    """Radius mode at fsaverage7 density on the card (phase radius)."""
+    import numpy as np
+    import torch
+
+    from multimodal_decoding_tpu_torch.io.surface import icosphere, radius_adjacency
+
+    coords = icosphere(RD_ICO).coordinates
+    r = radius_for(coords, RD_KMEAN)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    idx, mask, counts = radius_adjacency(coords, r, device=DEVICE)
+    adjacency_s = time.time() - t0
+    if not np.array_equal(mask.sum(1), counts) or counts.dtype != np.int32:
+        raise AssertionError(f"radius adjacency: mask sums differ from counts "
+                             f"({counts.dtype})")
+    out = {"vertices": len(coords), "radius": r, "kmean": float(counts.mean()),
+           "kmax": int(counts.max()), "kmin": int(counts.min()),
+           "pad_waste": int(counts.max()) / float(counts.mean()), "adjacency_s": adjacency_s,
+           "count_flips": radius_count_flips(coords, r, idx, mask, counts)}
+    emit({"radius_adjacency": out})
+    out["blocks"] = radius_blocks(coords, idx, mask, counts)
+    del idx, mask
+    info = WS.runs["cli"]["info"] if "cli" in WS.runs else cli_dataset(WS.dir("radius_data"))
+    out["cli"] = radius_cli(info)
+    return out
+
+
 class PanelCalls:
     """Records the panel kernel's calls on the Schur base blocks while it is
     entered (summed over every entry): each call's shape, whether its tensor
     was contiguous and on the card, and how often the plain version ran on a
     card tensor (it must not).  It wraps the functions the solver calls; the
-    kernel's own count is untouched."""
+    kernel's own count is untouched.  ``keep_inputs``: a copy of the last
+    input of each shape is kept in ``inputs`` (the Schur recursion's last
+    base block holds a radius neighbourhood's masked rows)."""
 
-    def __init__(self):
+    def __init__(self, keep_inputs: bool = False):
         self.shapes, self.off_card, self.plain_on_card = {}, 0, 0
+        self.keep_inputs, self.inputs = keep_inputs, {}
 
     def __enter__(self):
         from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
@@ -984,6 +1530,8 @@ class PanelCalls:
             key = str(list(a.shape))
             self.shapes[key] = self.shapes.get(key, 0) + 1
             self.off_card += int(a.device.type != "cuda" or not a.is_contiguous())
+            if self.keep_inputs:
+                self.inputs[key] = a.clone()
             return self._kernel(a)
 
         def plain(a):
@@ -1556,9 +2104,7 @@ def precision_fast_math_cli() -> dict:
     import numpy as np
     import torch
 
-    from multimodal_decoding_tpu_torch import config
     from multimodal_decoding_tpu_torch.cli import run_searchlight as cli
-    from multimodal_decoding_tpu_torch.data.features import _load_feature_pickle
     from multimodal_decoding_tpu_torch.io import artifacts
     from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
     from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
@@ -1566,11 +2112,7 @@ def precision_fast_math_cli() -> dict:
     from multimodal_decoding_tpu_torch.parallel import searchlight_runner as R
 
     run = WS.runs["cli"]
-    config.FMRI_STIM_INFO_DIR = run["info"]["stim_info_dir"]
-    config.LATENT_FEATURES_DIR = run["info"]["features_dir"]
-    config.BETAS_CACHE_DIR = os.path.join(os.path.dirname(run["info"]["stim_info_dir"]),
-                                          "betas_cache")
-    _load_feature_pickle.cache_clear()
+    use_dataset(run["info"])
     argv = list(run["argv"])
     argv[argv.index("--out-dir") + 1] = WS.dir("cli_fast_math")
     H.reset_launches()
@@ -1666,7 +2208,7 @@ def precision_whole_brain() -> dict:
 
 
 def phase_precision() -> dict:
-    """The TPU's reduced-precision selection path on the card (phase 7)."""
+    """The TPU's reduced-precision selection path on the card (phase 8)."""
     if not {"cli", "wb_gate"} <= set(WS.runs):
         raise AssertionError("phase precision needs phases cli and wb_gate before it")
     out = {"kernels": {f"{name}:{precision}": kernel_precision_variant(name, precision)
@@ -3042,6 +3584,100 @@ def phase_extract() -> dict:
     return out
 
 
+def spelled_alike(out: str, paths: dict) -> list:
+    """An example's printed lines with ``paths`` ({path: placeholder}) and
+    temporary directory names replaced, and the device and timings the
+    library prints dropped: what a run on another device must print alike."""
+    import re
+
+    for path, placeholder in paths.items():
+        out = out.replace(path, placeholder)
+    out = re.sub(r"(mmd_demo_|mmd_roi_)\w+", r"\1<tmp>", out)
+    out = re.sub(r" \| DEVICE: \S+", "", out)
+    out = re.sub(r"Searchlight time: \d+s \(\d+ vertices/s\)", "Searchlight time: <t>", out)
+    out = re.sub(r"Elapsed time: \d+s", "Elapsed time: <t>", out)
+    return out.splitlines()
+
+
+def phase_examples() -> dict:
+    """The port's examples on the card (phase examples), each against a
+    --device cpu run of the port in this phase."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+    import tempfile
+
+    import torch
+
+    from multimodal_decoding_tpu_torch.examples import (
+        full_pipeline,
+        model_comparison,
+        nearest_neighbor_ranking,
+        roi_decoding,
+    )
+    from multimodal_decoding_tpu_torch.ops import hopper_metrics as HM
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+
+    root = WS.dir("examples")
+    figure = importlib.util.find_spec("matplotlib") is not None
+
+    def pipeline(device):
+        wd = os.path.join(tempfile.tempdir, "full_pipeline")
+        result = full_pipeline.pipeline(wd, 40, 6, device)
+        if figure:  # host matplotlib, which the card machine may lack
+            full_pipeline.figure(wd, *result)
+
+    def ranking(device):
+        # both devices rank the predictions of the card's model_comparison run
+        found = [os.path.join(base, f) for base, _, fs in os.walk(os.path.join(root, "card"))
+                 for f in fs if f == "results.p" and "mmd_demo_" in base]
+        nearest_neighbor_ranking.main([found[0], "--device", device])
+
+    examples = {"full_pipeline": pipeline,
+                "model_comparison": lambda d: model_comparison.main(["--device", d]),
+                "roi_decoding": lambda d: roi_decoding.main(["--device", d]),
+                "nearest_neighbor_ranking": ranking}
+    runs = {}
+    saved = tempfile.tempdir
+    try:
+        for run, device in (("card", DEVICE), ("cpu", "cpu")):
+            tempfile.tempdir = os.path.join(root, run)
+            os.makedirs(tempfile.tempdir)
+            for name, fn in examples.items():
+                H.reset_launches()
+                HM.reset_launches()
+                log = io.StringIO()
+                t0 = time.time()
+                with contextlib.redirect_stdout(log):
+                    fn(device)
+                torch.cuda.synchronize()
+                runs[name, run] = {"seconds": time.time() - t0, "launches": H.launches,
+                                   "streamed": sum(HM.launches.values()),
+                                   "lines": spelled_alike(log.getvalue(),
+                                                          {tempfile.tempdir: "<root>"})}
+    finally:
+        tempfile.tempdir = saved
+
+    out, fails = {"figure_step": "run" if figure else "skipped: no matplotlib here"}, []
+    for name in examples:
+        card, cpu = runs[name, "card"], runs[name, "cpu"]
+        numbers = re.findall(r"\d+\.\d+", "\n".join(card["lines"]))
+        differ = [(a, b) for a, b in zip(card["lines"], cpu["lines"]) if a != b]
+        out[name] = {"card_s": card["seconds"], "cpu_s": cpu["seconds"],
+                     "chol_inv_panel_launches": card["launches"], "lines": len(card["lines"]),
+                     "numbers_compared": len(numbers), "last_line": card["lines"][-1]}
+        if len(card["lines"]) != len(cpu["lines"]) or differ:
+            fails.append(f"{name}: card and CPU print differently, first {differ[:3]}")
+        if cpu["launches"] or card["streamed"] or cpu["streamed"]:
+            fails.append(f"{name}: kernels launched off the card path: {cpu}, {card}")
+        if (card["launches"] > 0) != (name != "nearest_neighbor_ranking"):
+            fails.append(f"{name}: {card['launches']} chol_inv_panel launches on the card")
+    if fails:
+        raise AssertionError(f"examples: {'; '.join(fails)}: {out}")
+    return out
+
+
 def kernels_line(results: dict) -> dict:
     """The {"kernels": [...]} summary: each kernel's launches on its main path
     (the CLI for chol_inv_panel, its scorer's run for the streamed ones) and
@@ -3049,6 +3685,7 @@ def kernels_line(results: dict) -> dict:
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shapes = results.get("kernel", {}).get("shapes", [{}])
     dist = results.get("dist", {})
+    radius = results.get("radius", {})
     main_shape = shapes[0]
     wb_keys = (*keys, "max_rel_err", "library_ratio")
     kernels = [{
@@ -3064,11 +3701,18 @@ def kernels_line(results: dict) -> dict:
             "streamed_ingestion": results.get("ingest", {}).get("launches"),
             "vertex_sharded_searchlight": dist.get("searchlight", {}).get("launches"),
             "feature_sharded_whole_brain_cli": dist.get("whole_brain_cli", {}).get("launches"),
-            "entry": dist.get("entry", {}).get("launches")},
+            "entry": dist.get("entry", {}).get("launches"),
+            "radius_blocks": radius.get("blocks", {}).get("chol_inv_panel", {}).get("launches"),
+            "radius_cli": radius.get("cli", {}).get("launches"),
+            "examples": sum(v.get("chol_inv_panel_launches", 0)
+                            for v in results.get("examples", {}).values()
+                            if isinstance(v, dict)) or None},
         **{k: main_shape.get(k) for k in keys}, "max_rel_err": main_shape.get("max_rel_err"),
         "library_ratio": main_shape.get("library_ratio"),
         "whole_brain_shapes": [{k: m.get(k) for k in wb_keys} for m in shapes
                                if m.get("shape", [None])[0] != B],
+        "radius_shapes": [{k: m.get(k) for k in wb_keys} for m in shapes
+                          if tuple(m.get("shape", [None])[:2]) in RADIUS_BASE_SHAPES],
     }]
     scorer_of = {kernel: scorer for scorer, kernel in STREAMED_SCORERS.items() if kernel}
     precision = results.get("precision", {})
@@ -3151,6 +3795,7 @@ def main() -> int:
                    "wb": phase_wb, "wb_cli": phase_wb_cli, "stats": phase_stats,
                    "study": phase_study, "ingest": phase_ingest, "dist": phase_dist,
                    "analyses": phase_analyses, "extract": phase_extract,
+                   "radius": phase_radius, "examples": phase_examples,
                    "flips": phase_flips,
                    "wb_profile": phase_wb_profile,
                    "profile": lambda: phase_profile(args.scorer, args.precision)}[name]()

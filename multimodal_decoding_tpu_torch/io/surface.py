@@ -192,6 +192,8 @@ def radius_adjacency(coords: np.ndarray, radius: float, block: int = 4096, devic
     Every neighbourhood is padded to the largest count: returns (indices
     [V, Kmax], mask [V, Kmax], n_neighbors [V]).  Padded slots repeat the
     vertex's nearest neighbour (itself) and are masked out of the ridge fit.
+    The counts are int32, as the JAX package's (the results pickle's
+    ``n_neighbors`` and the shared adjacency cache hold them).
     """
     dev = resolve_device(device)
     pts = torch.as_tensor(np.asarray(coords, dtype=np.float32), device=dev)
@@ -199,7 +201,8 @@ def radius_adjacency(coords: np.ndarray, radius: float, block: int = 4096, devic
     v = len(pts)
     r2 = float(radius) ** 2
     counts = np.concatenate([
-        torch.sum(_sq_dists(pts[s:s + block], pts, pts_sq) <= r2, dim=1).cpu().numpy()
+        torch.sum(_sq_dists(pts[s:s + block], pts, pts_sq) <= r2, dim=1,
+                  dtype=torch.int32).cpu().numpy()
         for s in range(0, v, block)
     ])
     kmax = int(counts.max())

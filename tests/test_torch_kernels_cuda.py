@@ -69,6 +69,28 @@ def test_chol_inv_panel_kernel_at_production_alphas(cuda, pb, alpha):
     assert rel <= REL_TOL, rel
 
 
+@pytest.mark.parametrize("alpha", [1e2, 1e7])
+@pytest.mark.parametrize("pb", [99, 100, 101])
+def test_chol_inv_panel_kernel_at_radius_shapes_with_a_masked_neighbour(cuda, pb, alpha):
+    """Radius mode's base blocks at fsaverage7 density, [128, 99..101], at the
+    ends of the production alpha grid, each with one masked neighbour: its
+    row and column zero apart from alpha on the diagonal (a different one in
+    each matrix), so L^-1 has 1/sqrt(alpha) there and zeros around it."""
+    gen = torch.Generator(device=cuda).manual_seed(pb)
+    X = torch.randn((128, 8192, pb), generator=gen, device=cuda)
+    masked = torch.arange(128, device=cuda) % pb
+    X[torch.arange(128, device=cuda), :, masked] = 0.0
+    A = X.mT @ X + alpha * torch.eye(pb, device=cuda)
+    got, ref = H.chol_inv_panel(A), H.chol_inv_panel_plain(A)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel <= REL_TOL, rel
+    rows = torch.arange(128, device=cuda)
+    diag = got[rows, masked, masked]
+    torch.testing.assert_close(diag, torch.full_like(diag, alpha ** -0.5), rtol=1e-6, atol=0)
+    got[rows, masked, masked] = 0.0
+    assert torch.all(got[rows, masked, :] == 0) and torch.all(got[rows, :, masked] == 0)
+
+
 @pytest.mark.parametrize("bad", [0, 100, 187])
 def test_chol_inv_panel_kernel_gives_nan_on_a_block_that_is_not_spd(cuda, bad):
     """No pivoting: a negative pivot (in the first, a middle or the last
