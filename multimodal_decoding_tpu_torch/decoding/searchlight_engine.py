@@ -38,6 +38,7 @@ from multimodal_decoding_tpu_torch.ops import metrics as M
 from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.ridge import first_argmax_with_tol, kfold_indices
 from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse, spd_solve
+from multimodal_decoding_tpu_torch.utils.profiling import span
 
 CV_SCORERS = ("xla", "strict", "pallas", "fused", "fused-pallas", "fused-inv")
 _FUSED_SCORERS = ("fused", "fused-pallas", "fused-inv")
@@ -84,7 +85,8 @@ def fit_block(X_train_g: torch.Tensor, Y_train: torch.Tensor, alpha, precision="
     G = _gram(X_train_g, precision)
     XtY = _cross(X_train_g, Y_train, precision)
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
-    return spd_solve(G + alpha * eye, XtY, method=solver, precision=precision)
+    with span("mdt.engine.solve"):
+        return spd_solve(G + alpha * eye, XtY, method=solver, precision=precision)
 
 
 def predict_block(X_query_g: torch.Tensor, W: torch.Tensor, precision="highest",
@@ -163,10 +165,6 @@ def fit_block_cv(
     Y_sel = Y_train if cv_dtype is None else Y_train.to(cv_dtype)
     pred_dtype = torch.float32 if cv_dtype is None else cv_dtype
 
-    G_full = _gram(X_train_g, precision)
-    XtY_full = _cross(X_train_g, Y_train, precision)
-    eye = torch.eye(k, dtype=G_full.dtype, device=G_full.device)
-
     def k_by_nv(x, y):
         """x @ y [B, K, nv] at cv_precision; for the streamed kernels into
         rows that start 16 bytes apart, which they copy 16 bytes at a time."""
@@ -236,13 +234,19 @@ def fit_block_cv(
                             precision=cv_precision, apply_dtype=cv_dtype))
             for a in range(alphas.shape[0])])  # [A, B]
 
-    # the fold mean as XLA computes it: a sum times the reciprocal count
-    scores = M.count_ratio(torch.stack([fold_scores(v) for _, v in folds]).sum(dim=0),
-                           len(folds))  # [A, B]
-    best = first_argmax_with_tol(scores, axis=0)  # [B]
-    best_alpha = alphas[best]
-    W = spd_solve(G_full + best_alpha[:, None, None] * eye, XtY_full, method=solver,
-                  precision=precision)
+    with span("mdt.engine.select"):
+        # the full gram and cross, which fold_scores and the refit share
+        G_full = _gram(X_train_g, precision)
+        XtY_full = _cross(X_train_g, Y_train, precision)
+        eye = torch.eye(k, dtype=G_full.dtype, device=G_full.device)
+        # the fold mean as XLA computes it: a sum times the reciprocal count
+        scores = M.count_ratio(torch.stack([fold_scores(v) for _, v in folds]).sum(dim=0),
+                               len(folds))  # [A, B]
+        best = first_argmax_with_tol(scores, axis=0)  # [B]
+        best_alpha = alphas[best]
+    with span("mdt.engine.solve"):
+        W = spd_solve(G_full + best_alpha[:, None, None] * eye, XtY_full, method=solver,
+                      precision=precision)
     return W, best_alpha, scores.T
 
 
@@ -508,7 +512,8 @@ def score_and_null_block(
 
 
 def _split_patches(X_all, idx, mask, n_train, n_test):
-    patches = gather_patches(X_all, idx, mask)  # [N_all, B, K]
+    with span("mdt.engine.gather"):
+        patches = gather_patches(X_all, idx, mask)  # [N_all, B, K]
     return patches[:n_train], patches[n_train:n_train + n_test], patches[n_train + n_test:]
 
 
@@ -521,10 +526,13 @@ def searchlight_block(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, *,
     X_all [N_all, V] = concat(train, test, imagery) rows (float32, or bf16
     storage under fast math); idx [B, K]; mask [B, K] or None.
     """
-    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
-    return score_block(predict_block(Xte, W, precision), predict_block(Xim, W, precision),
-                       Y_test, Y_imag, layout, comp_cross_decoding_scores=comp_cross)
+    with span("mdt.engine.step"):
+        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+        W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
+        with span("mdt.engine.score"):
+            return score_block(predict_block(Xte, W, precision),
+                               predict_block(Xim, W, precision),
+                               Y_test, Y_imag, layout, comp_cross_decoding_scores=comp_cross)
 
 
 def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
@@ -533,13 +541,15 @@ def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha
                                 comp_cross: bool = True, precision="highest",
                                 solver: str = "cholesky", null_gather: str = "gather"):
     """Block step that also emits the per-shuffle null score family."""
-    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
-    return score_and_null_block(
-        predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test, Y_imag,
-        layout, shuffles, imagery_derangements, comp_cross_decoding_scores=comp_cross,
-        null_gather=null_gather,
-    )
+    with span("mdt.engine.step"):
+        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+        W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
+        with span("mdt.engine.score"):
+            return score_and_null_block(
+                predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test,
+                Y_imag, layout, shuffles, imagery_derangements,
+                comp_cross_decoding_scores=comp_cross, null_gather=null_gather,
+            )
 
 
 def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas,
@@ -556,17 +566,19 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
     The main path: each vertex's null scores come from the decoder refit at
     that vertex's CV-selected alpha.
     """
-    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
-                                    solver=solver, cv_precision=cv_precision,
-                                    cv_solver=cv_solver, cv_scorer=cv_scorer,
-                                    cv_dtype=cv_dtype, cv_unroll=cv_unroll,
-                                    cv_alpha_batch=cv_alpha_batch)
-    main, null = score_and_null_block(
-        predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test, Y_imag,
-        layout, shuffles, imagery_derangements, comp_cross_decoding_scores=comp_cross,
-        null_gather=null_gather,
-    )
+    with span("mdt.engine.step"):
+        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+        W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
+                                        solver=solver, cv_precision=cv_precision,
+                                        cv_solver=cv_solver, cv_scorer=cv_scorer,
+                                        cv_dtype=cv_dtype, cv_unroll=cv_unroll,
+                                        cv_alpha_batch=cv_alpha_batch)
+        with span("mdt.engine.score"):
+            main, null = score_and_null_block(
+                predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test,
+                Y_imag, layout, shuffles, imagery_derangements,
+                comp_cross_decoding_scores=comp_cross, null_gather=null_gather,
+            )
     main = dict(main)
     main["best_alpha"] = best_alpha
     return main, null
@@ -580,13 +592,16 @@ def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
                          cv_scorer: str = "xla", cv_dtype=None,
                          cv_unroll: bool = False, cv_alpha_batch: bool = False):
     """Block step with per-vertex CV alpha selection."""
-    Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-    W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
-                                    solver=solver, cv_precision=cv_precision,
-                                    cv_solver=cv_solver, cv_scorer=cv_scorer,
-                                    cv_dtype=cv_dtype, cv_unroll=cv_unroll,
-                                    cv_alpha_batch=cv_alpha_batch)
-    scores = dict(score_block(predict_block(Xte, W, precision), predict_block(Xim, W, precision),
-                              Y_test, Y_imag, layout, comp_cross_decoding_scores=comp_cross))
+    with span("mdt.engine.step"):
+        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+        W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
+                                        solver=solver, cv_precision=cv_precision,
+                                        cv_solver=cv_solver, cv_scorer=cv_scorer,
+                                        cv_dtype=cv_dtype, cv_unroll=cv_unroll,
+                                        cv_alpha_batch=cv_alpha_batch)
+        with span("mdt.engine.score"):
+            scores = dict(score_block(predict_block(Xte, W, precision),
+                                      predict_block(Xim, W, precision), Y_test, Y_imag,
+                                      layout, comp_cross_decoding_scores=comp_cross))
     scores["best_alpha"] = best_alpha
     return scores

@@ -37,6 +37,7 @@ from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.metrics import pairwise_accuracy
 from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse
 from multimodal_decoding_tpu_torch.parallel.multihost import host_shard_bounds
+from multimodal_decoding_tpu_torch.utils.profiling import count, span
 
 #: Width of the alpha-selection tie band (see first_argmax_with_tol).
 ALPHA_TIE_TOL = 1e-6
@@ -100,10 +101,12 @@ def ridge_predict(X, W, device=None) -> torch.Tensor:
 class _ColumnBlocks:
     """Column blocks ``X[:, lo:hi]`` of host arrays, each uploaded to ``device``.
 
-    On CUDA each block is copied into one of two pinned host buffers and sent
-    asynchronously on the current stream, so the host copy of the next block
-    overlaps the transfer and products of this one; a buffer is refilled only
-    after the event of its last transfer.  On the CPU the block is a view.
+    On CUDA each block is copied into one of two pinned host buffers (span
+    ``mdt.gram.stage``) and sent asynchronously on the current stream
+    (``mdt.gram.h2d``, its bytes counted in ``mdt.gram.h2d_bytes``), so the
+    host copy of the next block overlaps the transfer and products of this
+    one; a buffer is refilled only after the event of its last transfer.  On
+    the CPU the block is a view.
     """
 
     def __init__(self, arrays: list, block_cols: int, device: torch.device):
@@ -123,15 +126,18 @@ class _ColumnBlocks:
                 yield [h[:, lo:hi] for h in self.hosts]
                 continue
             slot = i % 2
-            if self.done[slot] is not None:
-                self.done[slot].synchronize()
-            blocks = []
-            for h, buf in zip(self.hosts, self.pinned[slot]):
-                staged = buf[:h.shape[0] * (hi - lo)].view(h.shape[0], hi - lo)
-                staged.copy_(h[:, lo:hi])
-                blocks.append(staged.to(self.device, non_blocking=True))
-            self.done[slot] = torch.cuda.Event()
-            self.done[slot].record()
+            with span("mdt.gram.stage"):
+                if self.done[slot] is not None:
+                    self.done[slot].synchronize()
+                staged = [buf[:h.shape[0] * (hi - lo)].view(h.shape[0], hi - lo)
+                          for h, buf in zip(self.hosts, self.pinned[slot])]
+                for h, buf in zip(self.hosts, staged):
+                    buf.copy_(h[:, lo:hi])
+            with span("mdt.gram.h2d"):
+                blocks = [s.to(self.device, non_blocking=True) for s in staged]
+                self.done[slot] = torch.cuda.Event()
+                self.done[slot].record()
+            count("mdt.gram.h2d_bytes", sum(s.nbytes for s in staged))
             yield blocks
 
 
@@ -155,10 +161,11 @@ def streamed_kernels(X_train: np.ndarray, queries=(), block_cols: int = 16384,
     K = torch.zeros((n, n), dtype=torch.float32, device=device) if with_gram else None
     Kq = [torch.zeros((q.shape[0], n), dtype=torch.float32, device=device) for q in queries]
     for xt, *xqs in _ColumnBlocks(arrays, block_cols, device):
-        if with_gram:
-            K.addmm_(xt, xt.mT)
-        for k, xq in zip(Kq, xqs):
-            k.addmm_(xq, xt.mT)
+        with span("mdt.gram.products"):
+            if with_gram:
+                K.addmm_(xt, xt.mT)
+            for k, xq in zip(Kq, xqs):
+                k.addmm_(xq, xt.mT)
     if mesh is not None:
         for k in [K, *Kq] if with_gram else Kq:
             dist.all_reduce(k)
@@ -261,39 +268,42 @@ def ridge_cv_dual(
     products run at ``cv_precision`` (``None``: the shipped
     ``precision.default_cv_precision(device)``); the refit is always the
     strict Cholesky solve.  ``timings``: if a dict, its
-    ``cv_s`` and ``refit_s`` get the seconds of the two stages, each ended
-    by a device synchronisation.  ``K`` is the whole gram (replicated under
+    ``cv_s`` and ``refit_s`` get the seconds of the two stages (spans
+    ``mdt.ridge.select`` and ``mdt.ridge.refit``), each ended by a device
+    synchronisation.  ``K`` is the whole gram (replicated under
     a feature mesh): there is nothing to shard here.
     """
     device = resolve_device(device)
     if cv_precision is None:
         cv_precision = PR.default_cv_precision(device)
-    t0 = time.time()
-    K, Y = as_float32(K, device), as_float32(Y, device)
-    alphas = [float(a) for a in alphas]
-    fold_scores = []
-    for train_idx, val_idx in kfold_indices(K.shape[0], n_splits):
-        lo, hi = int(val_idx[0]), int(val_idx[-1]) + 1
-        if np.array_equal(val_idx, np.arange(lo, hi)):
-            fold_scores.append(_cv_fold_scores_sliced(K, Y, lo, hi, alphas, scorer=scorer,
-                                                      solver=cv_solver,
-                                                      precision=cv_precision))
-        else:
-            # gather fallback for non-contiguous folds (a bare assert would
-            # vanish under python -O and silently slice wrong rows)
-            tr = torch.as_tensor(np.ascontiguousarray(train_idx), device=device)
-            va = torch.as_tensor(np.ascontiguousarray(val_idx), device=device)
-            fold_scores.append(_cv_fold_scores(K[tr][:, tr], K[va][:, tr], Y[tr], Y[va],
-                                               alphas, scorer=scorer, solver=cv_solver,
-                                               precision=cv_precision))
-    mean_scores = torch.mean(torch.stack(fold_scores), dim=0)
-    best_idx = int(first_argmax_with_tol(mean_scores))
-    mean_scores = mean_scores.cpu().numpy()
-    t1 = time.time()
-    dual_coef = dual_ridge_fit(K, Y, alphas[best_idx], device=device)
+    t0 = time.perf_counter()
+    with span("mdt.ridge.select"):
+        K, Y = as_float32(K, device), as_float32(Y, device)
+        alphas = [float(a) for a in alphas]
+        fold_scores = []
+        for train_idx, val_idx in kfold_indices(K.shape[0], n_splits):
+            lo, hi = int(val_idx[0]), int(val_idx[-1]) + 1
+            if np.array_equal(val_idx, np.arange(lo, hi)):
+                fold_scores.append(_cv_fold_scores_sliced(K, Y, lo, hi, alphas, scorer=scorer,
+                                                          solver=cv_solver,
+                                                          precision=cv_precision))
+            else:
+                # gather fallback for non-contiguous folds (a bare assert would
+                # vanish under python -O and silently slice wrong rows)
+                tr = torch.as_tensor(np.ascontiguousarray(train_idx), device=device)
+                va = torch.as_tensor(np.ascontiguousarray(val_idx), device=device)
+                fold_scores.append(_cv_fold_scores(K[tr][:, tr], K[va][:, tr], Y[tr], Y[va],
+                                                   alphas, scorer=scorer, solver=cv_solver,
+                                                   precision=cv_precision))
+        mean_scores = torch.mean(torch.stack(fold_scores), dim=0)
+        best_idx = int(first_argmax_with_tol(mean_scores))
+        mean_scores = mean_scores.cpu().numpy()
+    t1 = time.perf_counter()
+    with span("mdt.ridge.refit"):
+        dual_coef = dual_ridge_fit(K, Y, alphas[best_idx], device=device)
     if timings is not None:
         synchronize(device)
-        timings.update(cv_s=t1 - t0, refit_s=time.time() - t1)
+        timings.update(cv_s=t1 - t0, refit_s=time.perf_counter() - t1)
     return best_idx, mean_scores, dual_coef
 
 

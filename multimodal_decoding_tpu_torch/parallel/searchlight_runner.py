@@ -39,6 +39,7 @@ from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
 from multimodal_decoding_tpu_torch.parallel.mesh import barrier, is_writer, pad_to_multiple
 from multimodal_decoding_tpu_torch.parallel.multihost import host_numpy, host_shard_bounds
 from multimodal_decoding_tpu_torch.utils import threefry
+from multimodal_decoding_tpu_torch.utils.profiling import span
 
 
 def _auto_block_size(n_rows: int, k: int, n_devices: int = 1,
@@ -239,61 +240,65 @@ def run_searchlight(
         nonlocal n_hosted
         if checkpoint_path is None:
             return
-        n_hosted = _materialize_pending([results, null_results], n_hosted, mesh)
-        if not is_writer(mesh):
-            return
-        os.makedirs(os.path.dirname(checkpoint_path) or ".", exist_ok=True)
-        tmp = checkpoint_path + ".tmp.npz"
-        np.savez(
-            tmp.removesuffix(".npz"),
-            done_blocks=done,
-            results=np.array(results, dtype=object),
-            null_results=np.array(null_results, dtype=object),
-        )
-        os.replace(tmp, checkpoint_path)
+        with span("mdt.runner.flush"):
+            n_hosted = _materialize_pending([results, null_results], n_hosted, mesh)
+            if not is_writer(mesh):
+                return
+            os.makedirs(os.path.dirname(checkpoint_path) or ".", exist_ok=True)
+            tmp = checkpoint_path + ".tmp.npz"
+            np.savez(
+                tmp.removesuffix(".npz"),
+                done_blocks=done,
+                results=np.array(results, dtype=object),
+                null_results=np.array(null_results, dtype=object),
+            )
+            os.replace(tmp, checkpoint_path)
 
     common = dict(layout=layout, n_train=n_train, n_test=n_test, precision=precision)
     cv_kw = dict(cv_precision=cv_precision, cv_solver=cv_solver, cv_scorer=cv_scorer,
                  cv_dtype=cv_dtype)
-    t0 = time.time()
+    t0 = time.perf_counter()
     for b in range(n_blocks):
         if b <= ckpt_done:
             continue
-        sl = slice(b * block_size, (b + 1) * block_size)
-        idx_b = to_dev(idx_padded[sl][rows], torch.int64)
-        mask_b = (to_dev(mask_padded[sl][rows], torch.bool) if mask_padded is not None
-                  else None)
-        if use_null:
-            der = (imagery_derangements[sl] if imagery_derangements is not None
-                   else draw_imagery_derangements(null_seed, b, block_size, n_perms))
-            der_d = to_dev(der[rows], torch.int64)
-        if use_cv and use_null:
-            main, null = searchlight_block_cv_with_null(
-                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
-                shuffles_d, der_d, null_gather=null_gather, **common, **cv_kw)
-            results.append(main)
-            null_results.append(null)
-        elif use_cv:
-            results.append(searchlight_block_cv(
-                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
-                **common, **cv_kw))
-        elif use_null:
-            main, null = searchlight_block_with_null(
-                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha,
-                shuffles_d, der_d, null_gather=null_gather, **common)
-            results.append(main)
-            null_results.append(null)
-        else:
-            results.append(searchlight_block(
-                X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha, **common))
-        if (b + 1) % flush_every == 0:
-            n_hosted = _materialize_pending([results, null_results], n_hosted, mesh)
-        if checkpoint_every and (b + 1) % checkpoint_every == 0:
-            _save_ckpt(b)
-        if progress and (b % 10 == 0 or b == n_blocks - 1):
-            print(f"searchlight block {b + 1}/{n_blocks}", flush=True)
+        with span("mdt.runner.block"):
+            sl = slice(b * block_size, (b + 1) * block_size)
+            with span("mdt.runner.upload"):
+                idx_b = to_dev(idx_padded[sl][rows], torch.int64)
+                mask_b = (to_dev(mask_padded[sl][rows], torch.bool)
+                          if mask_padded is not None else None)
+                if use_null:
+                    der = (imagery_derangements[sl] if imagery_derangements is not None
+                           else draw_imagery_derangements(null_seed, b, block_size, n_perms))
+                    der_d = to_dev(der[rows], torch.int64)
+            if use_cv and use_null:
+                main, null = searchlight_block_cv_with_null(
+                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
+                    shuffles_d, der_d, null_gather=null_gather, **common, **cv_kw)
+                results.append(main)
+                null_results.append(null)
+            elif use_cv:
+                results.append(searchlight_block_cv(
+                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
+                    **common, **cv_kw))
+            elif use_null:
+                main, null = searchlight_block_with_null(
+                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha,
+                    shuffles_d, der_d, null_gather=null_gather, **common)
+                results.append(main)
+                null_results.append(null)
+            else:
+                results.append(searchlight_block(
+                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha, **common))
+            # the last block hosts every output still on the device
+            if (b + 1) % flush_every == 0 or b == n_blocks - 1:
+                with span("mdt.runner.flush"):
+                    n_hosted = _materialize_pending([results, null_results], n_hosted, mesh)
+            if checkpoint_every and (b + 1) % checkpoint_every == 0:
+                _save_ckpt(b)
+            if progress and (b % 10 == 0 or b == n_blocks - 1):
+                print(f"searchlight block {b + 1}/{n_blocks}", flush=True)
 
-    _materialize_pending([results, null_results], n_hosted, mesh)
     synchronize(device)
 
     def collect(blocks):
@@ -301,7 +306,7 @@ def run_searchlight(
                 for m in blocks[0].keys()}
 
     scores = collect(results)
-    elapsed = time.time() - t0
+    elapsed = time.perf_counter() - t0
     # rate over the vertices THIS call computed: a resumed run must not
     # claim the checkpointed blocks' work
     done_before = min((ckpt_done + 1) * block_size, v_orig)
