@@ -20,7 +20,14 @@ Phases, each printing one JSON line with its seconds:
              [128, 188|187] (the searchlight's schur-pallas base blocks),
              [128, 64] (the blocked_spd_inverse panel), [6, 103|102] (the
              whole-brain CV's base blocks) and [128, 101|100|99] (radius
-             mode's base blocks at fsaverage7 density).  The
+             mode's base blocks at fsaverage7 density).  The strict
+             solve (ops/hopper_solvers.blocked_cholesky_solve: B1 on
+             each panel, GEMM substitutions) at the fixed-alpha cell's
+             [85, 750, 750] x 1024 and at radius mode's Kmax 804 with
+             padded columns, beside torch.linalg.cholesky +
+             torch.cholesky_solve (MAGMA): both against float64 (<= 1e-5),
+             device ms, the host's ms to return from each call, and one
+             B1 launch per panel.  The
              streamed-count kernels must give counts equal to the plain
              version on integer-valued inputs and accuracies within 1e-5 on
              Gaussian ones; streamed_acc_from_inv's Z GEMM and count are also
@@ -31,14 +38,15 @@ Phases, each printing one JSON line with its seconds:
              strict Cholesky selection, on a planted signal whose strength
              varies over the sphere: at least 3 distinct alphas selected,
              alpha agreement >= 0.998, CV-score delta <= 1e-5, final-score
-             delta <= 1e-4, and 240 kernel launches (2 blocks x 120).
+             delta <= 1e-4, and 248 kernel launches (2 blocks x 124: 120 in
+             the selection, 4 panels of the strict refit at K = 750).
 4. scorers - the streamed-count selection path: the gate's problem and blocks
              through run_searchlight with cv_scorer "pallas", "fused",
              "fused-pallas" and "fused-inv" (and "xla" beside them) on the
              "schur-pallas" solver, each held to the strict path: agreement
              >= 0.998, >= 3 distinct alphas, CV-score delta <= 1e-5 ("pallas")
              or 5e-5 ("fused*", reassociated through K), final-score delta
-             <= 1e-4, and exact launch counts (60 of the scorer's kernel, 240
+             <= 1e-4, and exact launch counts (60 of the scorer's kernel, 248
              of chol_inv_panel); prints vertices/s per scorer.
 5. cli     - the port's searchlight CLI in-process, on a synthetic subject at
              full width on icosphere(4) (2,562 vertices per hemisphere, the
@@ -64,7 +72,8 @@ Phases, each printing one JSON line with its seconds:
              unless its rank counts hold a float64 near-tie (< 1e-5; the
              excused vertices' gaps printed);
              chol_inv_panel's launches and shapes (Kmax halves three times
-             to [128, ~100]: 240 a block), held to its plain version on
+             to [128, ~100]: 240 a block, and the refit's 5 panels of
+             161|160: 245 a block), held to its plain version on
              the path's own masked inputs; the null gathers "gather",
              "onehot" and "onehot-bf16" bit for bit (whole blocks, and the
              null scoring alone at P = 100 and 1000), each one's ms, and the
@@ -108,7 +117,7 @@ Phases, each printing one JSON line with its seconds:
              against the strict path: the agreement printed beside the JAX
              package's 0.95 and the default gate's 0.998, where the alphas
              differ the strict CV accuracy given up <= 1e-3, final scores
-             bitwise equal where they agree, 240 chol_inv_panel launches and
+             bitwise equal where they agree, 248 chol_inv_panel launches and
              60 of the scorer's kernel at that precision, and fused-pallas
              equal to fused-inv (the same Z planes into the same count:
              alphas, CV grids, final and null scores bit for bit); the searchlight
@@ -149,7 +158,8 @@ Phases, each printing one JSON line with its seconds:
              K=375 neighbours, D=1024, 100 nulls each, the 6-alpha CV): every
              artifact at the JAX package's paths, significant vertices, a
              rerun that skips every stage, the exact chol_inv_panel launch
-             count of the Schur recursion at K, no streamed-count launch,
+             count of the Schur recursion and the refit's panels at K, no
+             streamed-count launch,
              the permutation CLI on the same searchlight outputs giving the
              same null_max and p-values, and the export CLI writing every
              subject, average and min-composite GIfTI map, each read back
@@ -165,12 +175,12 @@ Phases, each printing one JSON line with its seconds:
              eager tensor cast to bf16; seconds of each pass, file-read and
              H2D GB/s, host peak
              RSS growth of each path; then 2 runner blocks (B = 128, K = 750,
-             6 alphas, 100 nulls) from each tensor: equal outputs, 240
+             6 alphas, 100 nulls) from each tensor: equal outputs, 248
              chol_inv_panel launches from the streamed one.
 14. dist   - the multi-GPU paths on a world of one NCCL rank (one card holds
              one rank): the gate's 2 blocks through run_searchlight(mesh=...)
              against mesh=None (alphas and nulls equal, scores within rtol
-             2e-5 / atol 2e-6, 240 launches), the whole-brain CLI with
+             2e-5 / atol 2e-6, 248 launches), the whole-brain CLI with
              --multichip on phase wb_cli's data set (equal accuracies and
              predictions, 320 launches), the permutation CLI with --sharded
              on phase study's searchlights (equal null_max and p-values),
@@ -262,7 +272,10 @@ SCORE_DELTA_MAX = 1e-4
 MIN_DISTINCT_ALPHAS = 3    # the gate must see the selection pick across the grid
 ALPHAS = [1e2, 1e3, 1e4, 1e5, 1e6, 1e7]
 N_TRAIN, N_TEST, N_IMAG, K, D, B, P = 8192, 140, 3, 750, 1024, 128, 100
-LAUNCHES_PER_BLOCK = 120  # chol_inv_panel: 4 base blocks per Schur inverse x 6 alphas x 5 folds
+# chol_inv_panel a block at K = 750: 4 base blocks per Schur inverse x 6 alphas x 5 folds in
+# the selection, and the strict refit's blocked Cholesky over 4 panels of 188|187
+REFIT_PANELS = 4
+LAUNCHES_PER_BLOCK = 120 + REFIT_PANELS
 SCORER_CALLS_PER_BLOCK = 30  # a streamed scorer's kernel: 6 alphas x 5 folds
 NV = 1639  # the largest validation fold of N_TRAIN = 8192 (KFold, 5 splits)
 STREAMED_SCORERS = {"pallas": "streamed_pairwise_acc", "fused": None,
@@ -483,7 +496,7 @@ def sass_hgmma(lib: str) -> dict:
 
 
 def phase_kernel() -> dict:
-    out = {"shapes": kernel_chol_inv_panel()}
+    out = {"shapes": kernel_chol_inv_panel(), "cholesky_solve": kernel_cholesky_solve()}
     for name, _ in STREAMED:
         out[name] = kernel_streamed(name)
     return out
@@ -527,6 +540,73 @@ def kernel_chol_inv_panel() -> list:
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         })
     return shapes
+
+
+def kernel_cholesky_solve() -> list:
+    """The strict solve on the card (``spd_solve(method="cholesky")``: the
+    blocked Cholesky, B1 on each panel) beside the library's
+    ``torch.linalg.cholesky`` + ``torch.cholesky_solve``, at the fixed-alpha
+    cell's block (85 vertices, K = 750, D = 1024, alpha 1) and at radius
+    mode's Kmax 804 with each vertex's columns past its count zeroed."""
+    import torch
+
+    from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
+    from multimodal_decoding_tpu_torch.ops.solvers import spd_solve
+
+    rows = []
+    for k, pad in [(K, False), (804, True)]:
+        gen = torch.Generator(device=DEVICE).manual_seed(k)
+        X = torch.randn((85, N_TRAIN, k), generator=gen, device=DEVICE)
+        if pad:
+            counts = torch.randint(700, k + 1, (85,), generator=gen, device=DEVICE)
+            X *= (torch.arange(k, device=DEVICE)[None] < counts[:, None])[:, None]
+        A = X.mT @ X + torch.eye(k, device=DEVICE)
+        del X
+        rhs = torch.randn((85, k, D), generator=gen, device=DEVICE)
+        ref = torch.cholesky_solve(rhs.double(), torch.linalg.cholesky(A.double()))
+
+        def blocked():
+            return spd_solve(A, rhs, "cholesky")
+
+        def library():
+            return torch.cholesky_solve(rhs, torch.linalg.cholesky(A))
+
+        before = H.launches
+        got = blocked()
+        launches = H.launches - before
+        errs = {name: float((x.double() - ref).norm() / ref.norm())
+                for name, x in (("blocked", got), ("library", library()))}
+        del ref, got
+
+        def host_ms(fn, reps=5):
+            """Median ms the host takes to return from ``fn`` (enqueue, and any
+            wait for the device inside it), the queue empty at each call."""
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return sorted(times)[reps // 2]
+
+        ms, library_ms = cuda_time_ms(blocked, reps=10), cuda_time_ms(library, reps=10)
+        flops = 85 * (k ** 3 / 3 + 2 * k * k * D)  # factor, two substitutions
+        bytes_moved = 85 * (k * (k + 1) // 2 + 2 * k * D) * 4
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / FP32_FLOP_PER_S * 1e3
+        row = {"shape": [85, k, k, D], "padded": pad, "panels": cholesky_panels(k),
+               "launches": launches, "rel_err_vs_float64": errs["blocked"],
+               "library_rel_err_vs_float64": errs["library"], "ms": ms,
+               "library_ms": library_ms, "library_ratio": ms / library_ms,
+               "host_ms": host_ms(blocked), "library_host_ms": host_ms(library),
+               "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        rows.append(row)
+        if launches != len(row["panels"]) or not errs["blocked"] <= 1e-5:
+            raise AssertionError(f"blocked Cholesky solve: {row}")
+        del A, rhs
+    return rows
 
 
 def streamed_inputs(name: str, kind: str, seed: int) -> tuple:
@@ -1306,7 +1386,7 @@ def radius_blocks(coords, idx, mask, counts) -> dict:
     planted = planted_problem(np.asarray(coords)[patch["cols"]], seed=2)
     prob = RadiusProblem(np.concatenate(planted[:3]), *planted[3:])
     kmax = idx.shape[1]
-    leaves = schur_base_blocks(kmax)
+    leaves, panels = schur_base_blocks(kmax), cholesky_panels(kmax)
     blocks = [slice(b * B, (b + 1) * B) for b in range(2)]
     der = [draw_imagery_derangements(0, b, B, P) for b in range(2)]
 
@@ -1318,11 +1398,12 @@ def radius_blocks(coords, idx, mask, counts) -> dict:
     launches = H.launches
     if any(HM.launches.values()):
         raise AssertionError(f"the radius blocks launched streamed kernels: {HM.launches}")
-    expected = 2 * SCORER_CALLS_PER_BLOCK * len(leaves)
-    calls.check("radius blocks", shapes=[(B, pb) for pb in set(leaves)])
+    expected = 2 * (SCORER_CALLS_PER_BLOCK * len(leaves) + len(panels))
+    calls.check("radius blocks", shapes=[(B, pb) for pb in {*leaves, *panels}])
     if launches != expected:
         raise AssertionError(f"radius blocks: {launches} chol_inv_panel launches, expected "
-                             f"{expected} (leaves {leaves} of Kmax {kmax})")
+                             f"{expected} (leaves {leaves}, refit panels {panels} of Kmax "
+                             f"{kmax})")
     # B1 on the path's own inputs (masked rows and columns: zero off the diagonal)
     held = {}
     for key, A in calls.inputs.items():
@@ -1434,9 +1515,9 @@ def radius_cli(info: dict) -> dict:
     res = artifacts.load_pickle(paths[0])
     counts, adjacency = res["n_neighbors"], res["adjacency"]
     kmax, n_vert = int(counts.max()), len(counts)
-    leaves = schur_base_blocks(kmax)
-    expected = -(-n_vert // B) * SCORER_CALLS_PER_BLOCK * len(leaves)
-    calls.check("radius CLI", shapes=[(B, pb) for pb in set(leaves)])
+    leaves, panels = schur_base_blocks(kmax), cholesky_panels(kmax)
+    expected = -(-n_vert // B) * (SCORER_CALLS_PER_BLOCK * len(leaves) + len(panels))
+    calls.check("radius CLI", shapes=[(B, pb) for pb in {*leaves, *panels}])
     fails = []
     if sorted(res) != sorted(SL_RESULT_KEYS):
         fails.append(f"pickle keys {sorted(res)}, the JAX package's {sorted(SL_RESULT_KEYS)}")
@@ -1512,9 +1593,11 @@ class PanelCalls:
     entered (summed over every entry): each call's shape, whether its tensor
     was contiguous and on the card, and how often the plain version ran on a
     card tensor (it must not).  It wraps the functions the solver calls; the
-    kernel's own count is untouched.  ``keep_inputs``: a copy of the last
-    input of each shape is kept in ``inputs`` (the Schur recursion's last
-    base block holds a radius neighbourhood's masked rows)."""
+    kernel's own count is untouched: the Schur recursion's calls
+    (``ops/solvers``) and the blocked Cholesky's (``ops/hopper_solvers``, the
+    strict solve's panels).  ``keep_inputs``: a copy of the last input of
+    each shape is kept in ``inputs`` (the Schur recursion's last base block
+    and the refit's panels hold a radius neighbourhood's masked rows)."""
 
     def __init__(self, keep_inputs: bool = False):
         self.shapes, self.off_card, self.plain_on_card = {}, 0, 0
@@ -1538,14 +1621,16 @@ class PanelCalls:
             self.plain_on_card += int(a.device.type == "cuda")
             return self._plain(a)
 
-        S.chol_inv_panel, H.chol_inv_panel_plain = kernel, plain
+        S.chol_inv_panel = H.chol_inv_panel = kernel
+        H.chol_inv_panel_plain = plain
         return self
 
     def __exit__(self, *exc):
         from multimodal_decoding_tpu_torch.ops import hopper_solvers as H
         from multimodal_decoding_tpu_torch.ops import solvers as S
 
-        S.chol_inv_panel, H.chol_inv_panel_plain = self._kernel, self._plain
+        S.chol_inv_panel = H.chol_inv_panel = self._kernel
+        H.chol_inv_panel_plain = self._plain
         return False
 
     def check(self, where: str, shapes=WB_BASE_SHAPES) -> None:
@@ -2532,6 +2617,14 @@ def schur_base_blocks(k: int, base: int = 192) -> list:
     return schur_base_blocks(half, base) + schur_base_blocks(k - half, base)
 
 
+def cholesky_panels(k: int) -> list:
+    """Panel sizes of the strict solve's blocked Cholesky at k: the fewest
+    near-equal panels of at most 192, the larger first
+    (ops/hopper_solvers.cholesky_panels)."""
+    n = -(-k // 192)
+    return [k // n + (1 if i < k % n else 0) for i in range(n)]
+
+
 def quiet(fn, *args):
     """``fn(*args)`` with its standard output held back (a study prints many
     lines a searchlight run); the last lines are printed if it raises."""
@@ -2699,9 +2792,10 @@ def phase_study() -> dict:
                 os.path.join(maps_dir, f"clusters{suffix}.p")]
     missing = [os.path.relpath(p, root) for p in expected if not os.path.isfile(p)]
 
-    # chol_inv_panel: every base block of every (alpha, fold) of every block
-    bases = schur_base_blocks(SD_K)
-    per_block = len(bases) * len(ALPHAS) * SD_FOLDS
+    # chol_inv_panel: every base block of every (alpha, fold) of every block,
+    # and the refit's panels
+    bases, panels = schur_base_blocks(SD_K), cholesky_panels(SD_K)
+    per_block = len(bases) * len(ALPHAS) * SD_FOLDS + len(panels)
     blocks = [-(-int((~artifacts.load_pickle(r)["nan_locations"]).sum()) // B)
               for r in results]
     expected_launches = sum(blocks) * per_block
@@ -2761,7 +2855,7 @@ def phase_study() -> dict:
     if launches != expected_launches or any(streamed.values()):
         fails.append(f"launches {launches} (expected {expected_launches}), "
                      f"streamed {streamed}")
-    calls.check("study", shapes=[(B, pb) for pb in bases])
+    calls.check("study", shapes=[(B, pb) for pb in {*bases, *panels}])
     if (rerun["searchlight_outputs"] or rerun_launches or observed.calls or nulls.calls
             or not same_p(rerun)):
         fails.append(f"the rerun did not skip: {len(rerun['searchlight_outputs'])} "

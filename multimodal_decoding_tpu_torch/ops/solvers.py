@@ -3,8 +3,12 @@
 Port of ``multimodal_decoding_tpu/ops/solvers.py`` with the same method
 names, so configs and tests line up name for name:
 
-* ``"cholesky"``: ``torch.linalg.cholesky`` + ``torch.cholesky_solve``
-  (the strict refit path).
+* ``"cholesky"``: the strict refit path.  On a CUDA tensor the blocked
+  Cholesky solve ``ops/hopper_solvers.blocked_cholesky_solve`` (panels
+  through the hand-written panel kernel, GEMM substitutions, nothing that
+  allocates outside PyTorch's caching allocator or waits for the device);
+  on a CPU tensor ``torch.linalg.cholesky`` + ``torch.cholesky_solve``, as
+  the JAX package computes it.
 * ``"schur"`` / ``"schur-cb"``: ``schur_spd_inverse`` with LU or
   Cholesky-inverse base blocks, then one GEMM against the right-hand side.
 * ``"schur-pallas"``: the Schur recursion with ``base=192`` whose base blocks
@@ -35,9 +39,11 @@ import torch
 
 from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.hopper_solvers import (
+    blocked_cholesky_solve,
     blocked_spd_inverse,
     chol_inv_panel,
 )
+from multimodal_decoding_tpu_torch.utils.profiling import count
 
 SOLVERS = ("cholesky", "schur", "schur-cb", "schur-cb16", "schur-cb16-ns", "tri-inv",
            "schur-pallas", "pallas")
@@ -173,13 +179,18 @@ def spd_solve(A: torch.Tensor, B: torch.Tensor, method: str = "cholesky",
               precision="highest", apply_dtype=None) -> torch.Tensor:
     """Solve ``A X = B`` for batched SPD ``A``.
 
-    "cholesky" factorises and solves (``precision`` and ``apply_dtype`` do
-    not apply); every other method forms the inverse (``spd_inverse``) and
-    applies it with one GEMM at ``precision``.  ``apply_dtype`` (selection
+    "cholesky" factorises and solves in float32 (``precision`` and
+    ``apply_dtype`` do not apply): on a CUDA tensor by
+    ``blocked_cholesky_solve``, each such solve counted as
+    ``mdt.solve.blocked``.  Every other method forms the inverse
+    (``spd_inverse``) and applies it with one GEMM at ``precision``.  ``apply_dtype`` (selection
     grade) casts the inverse and ``B`` to a narrow dtype for that GEMM, with
     float32 output; the ``"schur-cb16*"`` methods apply in float32.
     """
     if method == "cholesky":
+        if A.device.type == "cuda":
+            count("mdt.solve.blocked", 1)
+            return blocked_cholesky_solve(A, B)
         L = torch.linalg.cholesky(A)
         return torch.cholesky_solve(B, L)
     if method not in SOLVERS:

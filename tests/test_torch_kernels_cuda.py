@@ -622,3 +622,67 @@ def test_fused_pallas_equals_fused_inv_on_a_gate_block(cuda):
         _, best_i, scores_i = TE.fit_block_cv(X, Y, alphas, cv_scorer="fused-inv", **kw)
         assert torch.equal(best_p, best_i), precision
         assert torch.equal(scores_p, scores_i), precision
+
+
+def _waits_inside(events, span: str) -> list:
+    """Runtime calls that allocate or free device memory or wait for the
+    device, made while a ``span`` range was open on the host (Chrome trace
+    events of ``utils/profiling.device_trace``)."""
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e["name"] == span]
+    return [e["name"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and (e["name"].startswith(("cudaMalloc", "cudaFree", "cuMemAlloc", "cuMemFree"))
+                 or "Synchronize" in e["name"] or e["name"] == "cudaMemcpy")
+            and any(a <= e["ts"] <= b for a, b in ranges)]
+
+
+@pytest.mark.parametrize("k,pad", [(750, False), (804, True)])
+def test_blocked_cholesky_solve_on_the_card(cuda, tmp_path, k, pad):
+    """The strict solve of a fixed-alpha block at the searchlight's shapes
+    (85 vertices, N = 8192, D = 1024, alpha 1; at Kmax 804 each vertex's
+    columns past its count zeroed, as radius mode pads them): within 1e-5 of
+    float64, one panel launch per panel, one ``mdt.solve.blocked`` per call,
+    and once warm no allocation, free or wait for the device inside
+    ``mdt.engine.solve`` (the library's solve, traced beside it, has some)."""
+    import json
+    import os
+
+    from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+    from multimodal_decoding_tpu_torch.utils import profiling as P
+
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    Xg = torch.randn((8192, 85, k), generator=gen, device=cuda)
+    if pad:
+        counts = torch.randint(700, k + 1, (85,), generator=gen, device=cuda)
+        Xg *= (torch.arange(k, device=cuda)[None] < counts[:, None])[None]
+    Y = torch.randn((8192, 1024), generator=gen, device=cuda)
+    A = E._gram(Xg) + torch.eye(k, device=cuda)
+    XtY = E._cross(Xg, Y)
+    ref = torch.cholesky_solve(XtY.double(), torch.linalg.cholesky(A.double()))
+    W = E.fit_block(Xg, Y, 1.0)  # builds B1 and warms the caching allocator
+    rel = float((W.double() - ref).norm() / ref.norm())
+    assert rel <= 1e-5, rel
+
+    n_panels = len(H.cholesky_panels(k)) - 1
+    torch.cuda.synchronize()
+    before = H.launches
+    P.reset()
+    log_dir = str(tmp_path / "trace")
+    with P.device_trace(log_dir):
+        for _ in range(2):
+            W = E.fit_block(Xg, Y, 1.0)
+        with P.span("mdt.test.library_solve"):
+            torch.cholesky_solve(XtY, torch.linalg.cholesky(A))
+        torch.cuda.synchronize()
+    assert H.launches - before == 2 * n_panels
+    summary = P.summary()
+    P.reset()
+    assert summary["counters"]["mdt.solve.blocked"] == 2
+    assert summary["spans"]["mdt.engine.solve"]["count"] == 2
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    assert _waits_inside(events, "mdt.engine.solve") == []
+    assert _waits_inside(events, "mdt.test.library_solve")
+    assert float((W.double() - ref).norm() / ref.norm()) <= 1e-5

@@ -108,3 +108,104 @@ def test_unported_methods_raise(method):
         TS.spd_solve(A, A, method="qr")
     with pytest.raises(ValueError, match="unknown"):
         TS.spd_inverse(A, method="qr")
+
+# ---------------------------------------------------------------------------
+# The blocked Cholesky solve (the strict solve on the card; B1 runs its plain
+# version here), against float64 torch.cholesky_solve of the same float32 A
+# ---------------------------------------------------------------------------
+
+SOLVE_KS = [1, 64, 187, 192, 193, 375, 750, 804]
+
+
+def _spd_torch(seed: int, b: int, k: int, alpha: float, masked=()) -> torch.Tensor:
+    """[b, k, k] float32 ``X^T X + alpha I``, X [b, 3k, k] standard normal
+    with the columns ``masked`` zeroed (radius mode's pad columns)."""
+    X = torch.as_tensor(np.random.RandomState(seed).randn(b, 3 * k, k))
+    X[:, :, list(masked)] = 0.0
+    return (X.mT @ X + alpha * torch.eye(k, dtype=torch.float64)).to(torch.float32)
+
+
+def _float64_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    A, B = A.double(), B.double()
+    return torch.cholesky_solve(B, torch.linalg.cholesky(A))
+
+
+@pytest.mark.parametrize("k", SOLVE_KS)
+def test_cholesky_panels_are_near_equal_and_at_most_max_panel(k):
+    edges = TH.cholesky_panels(k)
+    sizes = np.diff(edges)
+    assert edges[0] == 0 and edges[-1] == k
+    assert len(sizes) == -(-k // TH.MAX_PANEL)
+    assert sizes.max() <= TH.MAX_PANEL and sizes.max() - sizes.min() <= 1
+    assert list(sizes) == sorted(sizes, reverse=True)
+    if k in (750, 804):
+        assert list(sizes) == {750: [188, 188, 187, 187], 804: [161] * 4 + [160]}[k]
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("d", [1, 1024])
+@pytest.mark.parametrize("k", SOLVE_KS)
+def test_blocked_cholesky_solve_matches_float64(k, d, b):
+    A = _spd_torch(k, b, k, alpha=float(k))
+    B = torch.as_tensor(np.random.RandomState(k + 1).randn(b, k, d).astype(np.float32))
+    got = TH.blocked_cholesky_solve(A, B)
+    assert got.dtype == torch.float32 and got.shape == (b, k, d)
+    assert _rel(got, _float64_solve(A, B)) <= REL_TOL
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [750, 804])
+def test_blocked_cholesky_solve_with_masked_columns(k, b):
+    """Radius mode's masked systems: a zeroed column leaves only alpha on its
+    diagonal, so the system stays SPD and that weight is B / alpha; alpha 1,
+    the fixed-alpha searchlight's, and pad columns in the first and last
+    panels and across a panel edge."""
+    masked = [0, 5, 187, 188, 189, k - 40, k - 1]
+    A = _spd_torch(k + b, b, k, alpha=1.0, masked=masked)
+    B = torch.as_tensor(np.random.RandomState(k).randn(b, k, 1024).astype(np.float32))
+    got = TH.blocked_cholesky_solve(A, B)
+    ref = _float64_solve(A, B)
+    assert _rel(got, ref) <= REL_TOL
+    assert torch.allclose(got[:, masked].double(), B[:, masked].double(), rtol=1e-6, atol=0)
+
+
+def test_blocked_cholesky_solve_broadcasts_and_leaves_its_inputs():
+    """Batch dimensions broadcast as torch.cholesky_solve's do; A and B unchanged."""
+    A = _spd_torch(7, 1, 200, alpha=200.0)
+    B = torch.as_tensor(np.random.RandomState(8).randn(2, 3, 200, 5).astype(np.float32))
+    A0, B0 = A.clone(), B.clone()
+    got = TH.blocked_cholesky_solve(A[0], B)  # A unbatched
+    assert got.shape == (2, 3, 200, 5)
+    assert _rel(got, _float64_solve(A[0], B)) <= REL_TOL
+    assert torch.equal(A, A0) and torch.equal(B, B0)
+
+
+@pytest.mark.parametrize("k", [193, 750])
+def test_blocked_cholesky_factor_is_the_cholesky_factor(k):
+    """The shared factor: L's blocks below the diagonal panels and each
+    panel's L_pp^-1, against float64 numpy."""
+    A = _spd_torch(k, 2, k, alpha=float(k))
+    edges = TH.cholesky_panels(k)
+    F, d_invs = TH.blocked_cholesky(A, edges)
+    L = np.linalg.cholesky(A.double().numpy())
+    for p, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+        assert _rel(d_invs[p], np.linalg.inv(L[:, lo:hi, lo:hi])) <= REL_TOL
+        if hi < k:
+            assert _rel(F[:, hi:, lo:hi], L[:, hi:, lo:hi]) <= REL_TOL
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 48, 5), (1, 200, 200, 1), (3, 750, 750, 64)])
+def test_spd_solve_cholesky_on_the_cpu_is_torch_cholesky_solve(shape):
+    """On a CPU tensor the strict solve stays the library's, bit for bit, and
+    the blocked solve's counter does not count, even while a profile records."""
+    b, k, _, d = shape
+    A = _spd_torch(k, b, k, alpha=float(k))
+    B = torch.as_tensor(np.random.RandomState(k).randn(b, k, d).astype(np.float32))
+    ref = torch.cholesky_solve(B, torch.linalg.cholesky(A))
+    from multimodal_decoding_tpu_torch.utils import profiling
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = TS.spd_solve(A, B, method="cholesky")
+    assert torch.equal(got, ref)
+    assert "mdt.solve.blocked" not in profiling.summary()["counters"]
+    profiling.reset()
