@@ -17,11 +17,17 @@ Configuration keys: ``icosphere_subdivisions``, ``mesh_radius``,
 ``precision``, ``cv_solver``, ``cv_scorer``, ``null_gather``.  Traffic keys:
 ``alphas`` (the CV grid) or ``alpha``, ``n_permutations``,
 ``blocks_per_call``, ``sample``, ``reference_chunk``, ``limits``.
+
+``TINY_CONFIG`` and ``TINY_TRAFFIC`` are the sizes the CPU tests shrink the
+cells of this driver to; ``FAULTS`` names, for each fault the tests plant,
+the program functions it wraps, as (module, function, planting helper): the
+helpers are ``portbench/tests/faults.py``'s or this module's own.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 
 import numpy as np
@@ -30,6 +36,45 @@ import torch
 from portbench.harness import bench, data, judge
 from portbench.reference import plain
 from portbench.reference import searchlight as reference
+from portbench.tests.faults import stale
+
+TINY_CONFIG = dict(icosphere_subdivisions=2, n_neighbors=12, n_train=60, n_test=20,
+                   latent_dim=8, block_size=16, signal_log10=[-1.5, 0.0])
+TINY_TRAFFIC = dict(n_permutations=5, blocks_per_call=2, sample=1000, reference_chunk=8)
+
+
+def half_rows(fn):
+    """A searchlight block step fitted on the first half of its train rows,
+    their products doubled (the mean over the rest)."""
+    def step(X_all, Y_train, *a, n_train, **k):
+        h = n_train // 2
+        X, Y = X_all.clone(), Y_train.clone()
+        X[:h] *= math.sqrt(2.0)
+        X[h:n_train] = 0.0
+        Y[:h] *= math.sqrt(2.0)
+        Y[h:] = 0.0
+        return fn(X, Y, *a, n_train=n_train, **k)
+    return step
+
+
+def altered_vertex(fn):
+    """A block step whose first vertex's caption accuracy is moved by 0.25."""
+    def step(*a, **k):
+        main, null = fn(*a, **k)
+        main = dict(main)
+        main["pairwise_acc_captions"] = main["pairwise_acc_captions"].clone()
+        main["pairwise_acc_captions"][0] += 0.25
+        return main, null
+    return step
+
+
+RUNNER = "multimodal_decoding_tpu_torch.parallel.searchlight_runner"
+STEPS = ("searchlight_block_cv_with_null", "searchlight_block_with_null")
+FAULTS = {
+    "state_unchanged": [(RUNNER, s, stale) for s in STEPS],
+    "half_batch": [(RUNNER, s, half_rows) for s in STEPS],
+    "answer_altered": [(RUNNER, s, altered_vertex) for s in STEPS],
+}
 
 
 class Driver:
@@ -39,6 +84,7 @@ class Driver:
         self.cv = "alphas" in traffic
         self.calls: list = []  # (first vertex, end vertex, scores, null, alpha) per window call
         self.setup_seconds: dict = {}
+        self.mask = None  # [V, K] live neighbours, where the adjacency is padded
 
     # -- set-up -------------------------------------------------------------
 
@@ -47,7 +93,7 @@ class Driver:
         phases = bench.Phases(self.device)
         coords = data.icosphere_coords(cfg["icosphere_subdivisions"], cfg["mesh_radius"])
         phases.mark("mesh")
-        self.adjacency = data.knn_on_device(coords, cfg["n_neighbors"], self.device)
+        self.adjacency = self._adjacency(coords)
         self.n_vertices = len(coords)
         phases.mark("adjacency")
         gen = data.generator(self.seed, self.device)
@@ -63,11 +109,14 @@ class Driver:
         phases.mark("inputs")
         # the warm-up: one block (vertex 0's, padded by the runner) of the
         # window's shapes, the runner's own imagery derangements
-        self.B = self._run(self.adjacency[:1], None)[1]["block_size"]
+        self.B = self._run(slice(0, 1), None)[1]["block_size"]
         self.n_blocks = -(-self.n_vertices // self.B)
         self.block = 0
         phases.mark("warmup")
         self.setup_seconds = phases.seconds
+
+    def _adjacency(self, coords: np.ndarray) -> np.ndarray:
+        return data.knn_on_device(coords, self.cfg["n_neighbors"], self.device)
 
     # -- the program --------------------------------------------------------
 
@@ -76,14 +125,16 @@ class Driver:
                                                         self.tr["n_permutations"])
                                for b in range(b0, b0 + nb)])
 
-    def _run(self, adjacency: np.ndarray, derangements):
+    def _run(self, rows: slice, derangements):
+        """``run_searchlight`` over the vertices ``rows`` of the adjacency."""
         from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 
         cfg, tr = self.cfg, self.tr
         n = cfg["n_train"], cfg["n_test"], cfg["n_imagery"]
         return run_searchlight(
-            None, None, None, *self.Y_host, adjacency, self.stim_types,
-            alpha=tr.get("alpha", 1.0), alphas_cv=tr.get("alphas"), shuffles=self.shuffles,
+            None, None, None, *self.Y_host, self.adjacency[rows], self.stim_types,
+            alpha=tr.get("alpha", 1.0), alphas_cv=tr.get("alphas"),
+            adjacency_mask=None if self.mask is None else self.mask[rows], shuffles=self.shuffles,
             imagery_derangements=derangements, block_size=cfg["block_size"],
             device=self.device, precision=cfg["precision"], cv_solver=cfg["cv_solver"],
             cv_scorer=cfg["cv_scorer"], null_gather=cfg["null_gather"], progress=False,
@@ -91,7 +142,7 @@ class Driver:
 
     def _call(self, b0: int, nb: int):
         lo, hi = b0 * self.B, min((b0 + nb) * self.B, self.n_vertices)
-        scores, aux = self._run(self.adjacency[lo:hi], self._derangements(b0, nb))
+        scores, aux = self._run(slice(lo, hi), self._derangements(b0, nb))
         if aux["block_size"] != self.B:
             raise RuntimeError(f"the runner's block size moved from {self.B} to "
                                f"{aux['block_size']} within one run")
@@ -160,18 +211,23 @@ class Driver:
         k = min(self.tr["sample"], len(done))
         return np.sort(data.rng(self.seed, data.STREAM_SAMPLE).choice(done, k, replace=False))
 
+    def reference_inputs(self, verts: np.ndarray) -> tuple:
+        """The plain reference's arguments after the neighbourhoods, for the
+        vertices ``verts``: latents, test rows, shuffles, derangement choices."""
+        dev = self.device
+        rows = torch.arange(self.cfg["n_test"], device=dev)
+        half = self.cfg["n_test"] // 2
+        der = np.stack([data.derangement_choices(self.seed, v // self.B, self.B,
+                                                 self.tr["n_permutations"])[v % self.B]
+                        for v in verts])
+        shuffles = torch.as_tensor(self.shuffles, device=dev).long()
+        return *self.Y, rows[:half], rows[half:], shuffles, torch.as_tensor(der, device=dev)
+
     def reference(self, verts: np.ndarray) -> dict:
         cfg, tr = self.cfg, self.tr
-        dev = self.device
-        rows = torch.arange(cfg["n_test"], device=dev)
-        half = cfg["n_test"] // 2
-        der = np.stack([data.derangement_choices(self.seed, v // self.B, self.B,
-                                                 tr["n_permutations"])[v % self.B]
-                        for v in verts])
         return reference.vertices(
-            self.X_all, torch.as_tensor(self.adjacency[verts], device=dev), *self.Y,
-            rows[:half], rows[half:], torch.as_tensor(self.shuffles, device=dev).long(),
-            torch.as_tensor(der, device=dev), alpha=tr.get("alpha"), alphas=tr.get("alphas"),
+            self.X_all, torch.as_tensor(self.adjacency[verts], device=self.device),
+            *self.reference_inputs(verts), alpha=tr.get("alpha"), alphas=tr.get("alphas"),
             n_splits=cfg["n_splits"], chunk=tr["reference_chunk"])
 
     def check(self, answers=None) -> dict:

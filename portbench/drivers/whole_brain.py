@@ -17,6 +17,11 @@ Configuration keys: ``n_features``, ``n_train``, ``n_test``, ``n_imagery``,
 ``cv_solver``, ``cv_precision``.  Traffic keys: ``training_modes``,
 ``latent_noise``, ``alphas``, ``cold``, ``whole_cycles``,
 ``warmup_items``, ``sample``, ``limits``.
+
+``TINY_CONFIG`` and ``TINY_TRAFFIC`` are the sizes the CPU tests shrink the
+cells of this driver to; ``FAULTS`` names, for each fault the tests plant,
+the program functions it wraps, as (module, function, planting helper): the
+helpers are ``portbench/tests/faults.py``'s or this module's own.
 """
 
 from __future__ import annotations
@@ -29,6 +34,40 @@ import torch
 
 from portbench.harness import bench, data, judge
 from portbench.reference import whole_brain as reference
+from portbench.tests.faults import stale
+
+TINY_CONFIG = dict(n_features=3000, n_train=100, n_test=20, latent_dim=8, noise=2.0,
+                   block_cols=512, mode_rows={"agnostic": [0, 100], "captions": [0, 50],
+                                              "images": [50, 100]})
+TINY_TRAFFIC = dict(sample=3)
+
+
+def half_features(fn):
+    """Gram kernels over the first half of the features, doubled (the mean
+    over the rest)."""
+    def kernels(X_train, queries=(), *a, **k):
+        h = X_train.shape[1] // 2
+        K, Kq = fn(X_train[:, :h], tuple(q[:, :h] for q in queries), *a, **k)
+        return 2.0 * K, [2.0 * q for q in Kq]
+    return kernels
+
+
+def altered_prediction(fn):
+    """A decode whose first test prediction is moved by 1."""
+    def decode(*a, **k):
+        alpha, test_preds, imag_preds, cv, fit_s = fn(*a, **k)
+        test_preds = test_preds.copy()
+        test_preds[0] += 1.0
+        return alpha, test_preds, imag_preds, cv, fit_s
+    return decode
+
+
+WHOLE_BRAIN = "multimodal_decoding_tpu_torch.decoding.whole_brain"
+FAULTS = {
+    "state_unchanged": [(WHOLE_BRAIN, "decode_single", stale)],
+    "half_batch": [(WHOLE_BRAIN, "streamed_kernels", half_features)],
+    "answer_altered": [(WHOLE_BRAIN, "decode_single", altered_prediction)],
+}
 
 
 class Driver:

@@ -63,7 +63,11 @@ def test_metric_reader(metric):
         assert w in {c["name"] for c in B["workloads"]}
 
 
-@pytest.mark.parametrize("name", ["peaks", "sl_block", "wb_gram"])
+COUNTS = sorted(f[:-3] for f in os.listdir(os.path.join(bench.BENCH_DIR, "counts"))
+                if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("name", COUNTS)
 def test_count_file(name):
     assert bench.counts(name).__doc__
 
