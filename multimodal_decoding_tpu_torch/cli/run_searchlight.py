@@ -74,8 +74,10 @@ def get_args(argv=None):
     parser.add_argument("--out-dir", type=str, default=SEARCHLIGHT_OUT_DIR)
     parser.add_argument("--overwrite", action="store_true", default=False)
     parser.add_argument("--fast-math", action="store_true", default=False,
-                        help="bfloat16 X_all storage and every product at one bf16 pass "
-                             "(precision 'default')")
+                        help="bfloat16 X_all storage and the fit's and predictions' "
+                             "products at one bf16 pass (precision 'default'); the "
+                             "Cholesky solve and the scores stay float32, and the CV "
+                             "selection (--l2-alphas) keeps its float32 settings")
     parser.add_argument("--adjacency-cache-dir", type=str, default="auto",
                         help="cache dir for the kNN/radius adjacency build; "
                              "'auto' = <out-dir>/.adjacency_cache, 'none' disables")

@@ -17,8 +17,14 @@ raises without a GPU).  The CV fast path (``fast_cv=True``) selects alphas
 with the scale-invariant fold scorer and the device's shipped selection
 settings, ``default_cv_solver``, ``default_cv_precision`` and
 ``default_cv_dtype``; the refit is always the strict Cholesky solve.
-``fast_math`` stores ``X_all`` in bf16 and runs every product at
-``"default"``, one bf16 pass (``ops/precision.py``).
+``fast_math`` stores ``X_all`` in bf16 and runs the fit's and the
+predictions' products at ``"default"``, one bf16 pass
+(``ops/precision.py``); the strict Cholesky solve and the scores'
+distances stay float32, and the CV selection keeps its own settings
+(``default_cv_precision``, ``"highest"``, and ``default_cv_dtype``,
+float32), so its products are not one bf16 pass.
+``precision_arguments`` is the one mapping of these flags to the runner's
+arguments.
 """
 
 from __future__ import annotations
@@ -92,6 +98,23 @@ def default_null_gather() -> str:
     return "gather"
 
 
+def precision_arguments(fast_math: bool, fast_cv: bool = True, alphas_cv=None,
+                        device=None) -> dict:
+    """The runner's precision arguments (``dtype``, ``precision``,
+    ``cv_precision``, ``cv_solver``, ``cv_scorer``, ``cv_dtype``) for the
+    flags ``fast_math`` and ``fast_cv`` and the CV grid ``alphas_cv`` (None:
+    a fixed alpha) on ``device``, as ``run`` passes them."""
+    fast_sel = fast_cv and alphas_cv is not None
+    return dict(
+        dtype=torch.bfloat16 if fast_math else torch.float32,
+        precision="default" if fast_math else "highest",
+        cv_precision=default_cv_precision(device) if fast_sel else None,
+        cv_solver=default_cv_solver(device) if fast_sel else None,
+        cv_scorer="xla" if fast_cv else "strict",
+        cv_dtype=default_cv_dtype(device) if fast_sel else None,
+    )
+
+
 def searchlight_mode_str(radius=None, n_neighbors=None) -> str:
     """Mode string in results paths (reference searchlight.py:299-305)."""
     if radius is not None:
@@ -143,7 +166,8 @@ class SearchlightConfig:
     out_dir: str | None = None
     overwrite: bool = False
     progress: bool = True
-    # bf16 X_all storage and every product at "default" (one bf16 pass)
+    # bf16 X_all storage and the fit's and predictions' products at
+    # "default" (one bf16 pass); see precision_arguments
     fast_math: bool = False
     # CV selection with the scale-invariant scorer at the device's shipped
     # default_cv_solver / default_cv_precision / default_cv_dtype; False
@@ -281,8 +305,7 @@ def run(cfg: SearchlightConfig) -> list:
     mesh = resolve_mesh(cfg.mesh, VERTEX_AXIS, cfg.device)
     device = mesh.device if mesh is not None else resolve_device(cfg.device)
     use_cv = cfg.alphas_cv is not None
-    fast_sel = cfg.fast_cv and use_cv
-    x_dtype = torch.bfloat16 if cfg.fast_math else torch.float32
+    precision_args = precision_arguments(cfg.fast_math, cfg.fast_cv, cfg.alphas_cv, device)
     shuffles = None
     if cfg.create_null_distr:
         shuffles = np.stack(
@@ -317,7 +340,8 @@ def run(cfg: SearchlightConfig) -> list:
                     keep = ~nan_locations
                     mean32, scale32 = streamed_scaler_fit(stream_readers[0], keep)
                     x_all_device = streamed_x_all_device(stream_readers, keep, mean32,
-                                                         scale32, device=device, dtype=x_dtype)
+                                                         scale32, device=device,
+                                                         dtype=precision_args["dtype"])
                     n_rows_split = tuple(r.n_rows for r in stream_readers)
                 else:
                     train_fmri, _, _ = get_fmri_surface_data(
@@ -368,12 +392,7 @@ def run(cfg: SearchlightConfig) -> list:
                     device=device,
                     x_all_device=x_all_device,
                     n_rows_split=n_rows_split,
-                    dtype=x_dtype,
-                    precision="default" if cfg.fast_math else "highest",
-                    cv_precision=default_cv_precision(device) if fast_sel else None,
-                    cv_solver=default_cv_solver(device) if fast_sel else None,
-                    cv_scorer="xla" if cfg.fast_cv else "strict",
-                    cv_dtype=default_cv_dtype(device) if fast_sel else None,
+                    **precision_args,
                     checkpoint_path=results_path + ".ckpt.npz",
                     # --overwrite redoes the work from scratch; a stale
                     # mid-run checkpoint must not silently resume under it

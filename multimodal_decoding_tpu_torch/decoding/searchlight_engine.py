@@ -82,8 +82,9 @@ def _cross(Xg: torch.Tensor, Y: torch.Tensor, precision="highest") -> torch.Tens
 def fit_block(X_train_g: torch.Tensor, Y_train: torch.Tensor, alpha, precision="highest",
               solver: str = "cholesky") -> torch.Tensor:
     """Batched closed-form ridge over a vertex block: [N, B, K], [N, D] -> W [B, K, D]."""
-    G = _gram(X_train_g, precision)
-    XtY = _cross(X_train_g, Y_train, precision)
+    with span("mdt.engine.fit"):
+        G = _gram(X_train_g, precision)
+        XtY = _cross(X_train_g, Y_train, precision)
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
     with span("mdt.engine.solve"):
         return spd_solve(G + alpha * eye, XtY, method=solver, precision=precision)
@@ -236,8 +237,9 @@ def fit_block_cv(
 
     with span("mdt.engine.select"):
         # the full gram and cross, which fold_scores and the refit share
-        G_full = _gram(X_train_g, precision)
-        XtY_full = _cross(X_train_g, Y_train, precision)
+        with span("mdt.engine.fit"):
+            G_full = _gram(X_train_g, precision)
+            XtY_full = _cross(X_train_g, Y_train, precision)
         eye = torch.eye(k, dtype=G_full.dtype, device=G_full.device)
         # the fold mean as XLA computes it: a sum times the reciprocal count
         scores = M.count_ratio(torch.stack([fold_scores(v) for _, v in folds]).sum(dim=0),

@@ -19,7 +19,9 @@ the same arithmetic.)
 A product of rounded operands on the card goes to cuBLAS, as the JAX package
 left products outside its kernels to XLA: ``torch.mm``/``torch.bmm`` of the
 bf16 operands with ``out_dtype=torch.float32`` (broadcast batch dimensions
-are folded into the rows or expanded first).  TF32 stays off throughout.
+are folded into the rows or expanded first), each GEMM counted as
+``mdt.precision.bf16`` (``utils/profiling.count``).  A bf16 operand at
+``"default"`` goes to it as it is.  TF32 stays off throughout.
 
 ``default_cv_precision`` and ``default_cv_dtype`` are the selection path's
 shipped settings per device, read by the searchlight, the whole-brain CV and
@@ -29,6 +31,8 @@ the sharded step as the JAX package reads its per-platform functions.
 from __future__ import annotations
 
 import torch
+
+from multimodal_decoding_tpu_torch.utils.profiling import count
 
 PRECISIONS = ("highest", "high", "default")
 
@@ -72,11 +76,13 @@ def split_bf16(x: torch.Tensor) -> tuple:
 
 def _rounded_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """float32 ``a @ b`` (``torch.matmul`` broadcasting, both at least 2-D) of
-    bf16-exact operands (float32 tensors holding bf16 values): exact products,
-    float32 sums.  On the card one cuBLAS bf16 GEMM with float32 output."""
+    bf16-exact operands (bf16 tensors, or float32 tensors holding bf16
+    values): exact products, float32 sums.  On the card one cuBLAS bf16 GEMM
+    with float32 output."""
     if a.device.type != "cuda":
-        return a @ b
+        return a.to(torch.float32) @ b.to(torch.float32)
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    count("mdt.precision.bf16", 1)
     m, n = a.shape[-2], b.shape[-1]
     if b.dim() == 2:  # a's batch folds into its rows
         c = torch.mm(a16.reshape(-1, a.shape[-1]), b16, out_dtype=torch.float32)
@@ -110,7 +116,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, precision="highest", out=None,
         b = b.to(torch.float32) if b.dtype == torch.bfloat16 else b
         return torch.matmul(a, b, out=out)
     if precision == "default":
-        c = _rounded_product(round_bf16(a), round_bf16(b))
+        c = _rounded_product(a.to(torch.bfloat16), b.to(torch.bfloat16))
     else:
         a_hi, a_lo = split_bf16(a)
         b_hi, b_lo = split_bf16(b)

@@ -158,7 +158,8 @@ def test_searchlight_is_bit_equal_with_spans_on(mode):
     n_blocks = on_aux["n_blocks"]
     assert n_blocks == 4  # 26 vertices padded to blocks of 8
     for name in ("mdt.runner.block", "mdt.runner.upload", "mdt.engine.step",
-                 "mdt.engine.gather", "mdt.engine.solve", "mdt.engine.score"):
+                 "mdt.engine.gather", "mdt.engine.fit", "mdt.engine.solve",
+                 "mdt.engine.score"):
         assert spans[name]["count"] == n_blocks, name
     assert spans.get("mdt.engine.select", {}).get("count", 0) == (n_blocks if mode == "cv"
                                                                   else 0)
@@ -269,7 +270,8 @@ def test_block_kernels_lie_inside_their_spans_on_the_card(cuda, tmp_path, mode):
     spans = P.summary()["spans"]
     n_blocks = aux["n_blocks"]
     assert spans["mdt.engine.step"]["count"] == n_blocks
-    timed = ["mdt.runner.block", "mdt.engine.step", "mdt.engine.solve", "mdt.engine.score"]
+    timed = ["mdt.runner.block", "mdt.engine.step", "mdt.engine.fit", "mdt.engine.solve",
+             "mdt.engine.score"]
     for name in timed + (["mdt.engine.select"] if mode == "cv" else []):
         assert spans[name]["stream_s"] > 0, name
     assert spans["mdt.runner.block"]["stream_s"] >= spans["mdt.engine.step"]["stream_s"]
@@ -283,13 +285,37 @@ def test_block_kernels_lie_inside_their_spans_on_the_card(cuda, tmp_path, mode):
             on_device.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
     by_span = _kernels_by_span(events)
     named = {name for _, _, name in by_span}
-    assert {"mdt.engine.gather", "mdt.engine.solve", "mdt.engine.score"} <= named
+    assert {"mdt.engine.gather", "mdt.engine.fit", "mdt.engine.solve",
+            "mdt.engine.score"} <= named
     assert ("mdt.engine.select" in named) == (mode == "cv")
-    # the fixed step's own gram and cross products, outside any child span
-    assert sum(name == "mdt.engine.step" for _, _, name in by_span) == (
-        n_blocks if mode == "fixed" else 0)
+    # each block's gram and cross products, in the fixed step and in the
+    # CV selection alike
+    assert sum(name == "mdt.engine.fit" for _, _, name in by_span) == n_blocks
     for (_, _, name), kernels in by_span.items():
         first, last = min(a for a, _ in kernels), max(b for _, b in kernels)
         # Chrome trace times are microseconds, to the nanosecond
         assert any(d0 - 1e-3 <= first and last <= d1 + 1e-3
                    for d0, d1 in on_device.get(name, [])), name
+
+
+@pytest.mark.cuda
+def test_fast_math_counts_its_bf16_products_on_the_card(cuda):
+    """``--fast-math``'s fixed-alpha step on the card: four bf16 GEMMs a block
+    (the gram, X^T Y, the test and the imagery predictions), each counted as
+    ``mdt.precision.bf16``, the gram and X^T Y inside ``mdt.engine.fit``."""
+    from multimodal_decoding_tpu_torch.decoding.searchlight import precision_arguments
+
+    def run():
+        return run_searchlight(**_searchlight_inputs(), alpha=1.0, block_size=8, device=cuda,
+                               progress=False, **precision_arguments(True))
+
+    off_scores, _ = run()
+    assert P.summary()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on_scores, aux = run()
+    _assert_equal_outputs(off_scores, on_scores)
+    s = P.summary()
+    assert s["counters"]["mdt.precision.bf16"] == 4 * aux["n_blocks"]
+    assert s["spans"]["mdt.engine.fit"]["count"] == aux["n_blocks"]
+    assert s["spans"]["mdt.engine.fit"]["stream_s"] > 0
+
