@@ -38,7 +38,7 @@ from multimodal_decoding_tpu_torch.ops import metrics as M
 from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.ridge import first_argmax_with_tol, kfold_indices
 from multimodal_decoding_tpu_torch.ops.solvers import spd_inverse, spd_solve
-from multimodal_decoding_tpu_torch.utils.profiling import span
+from multimodal_decoding_tpu_torch.utils.profiling import count, span
 
 CV_SCORERS = ("xla", "strict", "pallas", "fused", "fused-pallas", "fused-inv")
 _FUSED_SCORERS = ("fused", "fused-pallas", "fused-inv")
@@ -60,23 +60,70 @@ def gather_patches(X: torch.Tensor, idx: torch.Tensor, mask=None) -> torch.Tenso
     Zeroing a column excludes that neighbour from the ridge fit exactly (its
     gram row/column vanish; the regulariser pins its weight to 0), which
     gives radius-mode neighbourhoods a static shape.
+
+    16-bit betas whose K elements are not a whole number of 16 bytes are
+    gathered, in one pass, into a buffer ``[N, B, Kp]`` with K rounded up to
+    a multiple of 8 (its pad columns zeroed), and the ``[N, B, K]`` view of
+    it is returned: every row, vertex and row-slice offset of the patches is
+    then 16-byte aligned, which the card's bf16 GEMMs need to read them by
+    tensor map.  Each such gather counts one ``mdt.engine.aligned_gather``.
+    Float32 patches stay dense.
     """
-    patches = X[:, idx.long()]
+    k = idx.shape[-1]
+    kp = -(-k // 8) * 8
+    if X.element_size() != 2 or kp == k:
+        patches = X[:, idx.long()]
+        if mask is not None:
+            patches = patches * mask[None].to(patches.dtype)
+        return patches
+    count("mdt.engine.aligned_gather", 1)
+    n, b = X.shape[0], idx.shape[0]
+    idx_p = torch.zeros((b, kp), dtype=torch.long, device=idx.device)
+    idx_p[:, :k] = idx
+    buf = torch.empty((n, b, kp), dtype=X.dtype, device=X.device)
+    torch.index_select(X, 1, idx_p.view(-1), out=buf.view(n, b * kp))
+    buf[..., k:].zero_()
+    patches = buf[..., :k]
     if mask is not None:
-        patches = patches * mask[None].to(patches.dtype)
+        patches.mul_(mask[None].to(patches.dtype))
     return patches
 
 
+def _row_pitch(Xg: torch.Tensor) -> int:
+    """The elements from one patch row to the next: K, or the padded width
+    where ``Xg`` is a slice of ``gather_patches``' aligned buffer."""
+    n, b, k = Xg.shape
+    kp = Xg.stride(1)
+    padded = Xg.stride(2) == 1 and kp > k and Xg.stride(0) == b * kp
+    return kp if padded else k
+
+
 def _gram(Xg: torch.Tensor, precision="highest") -> torch.Tensor:
-    """[N, B, K] -> [B, K, K] = sum_n X[n, b, :]^T X[n, b, :], float32."""
+    """[N, B, K] -> [B, K, K] = sum_n X[n, b, :]^T X[n, b, :], float32.
+
+    On an aligned buffer over its ``Kp`` columns, whose pad rows and columns
+    are dropped from the result (each entry kept sums the same products):
+    both operands are contiguous along K, and cuBLAS vectorises their loads
+    only as far as that extent divides, so at K = 750 itself it stays on
+    2-element loads however the rows are aligned."""
+    n, b, k = Xg.shape
+    kp = _row_pitch(Xg)
+    if kp > k:
+        Xg = Xg.as_strided((n, b, kp), Xg.stride())
     Xb = Xg.permute(1, 0, 2)  # [B, N, K] view
-    return PR.matmul(Xb.mT, Xb, precision)
+    return PR.matmul(Xb.mT, Xb, precision)[:, :k, :k]
 
 
 def _cross(Xg: torch.Tensor, Y: torch.Tensor, precision="highest") -> torch.Tensor:
-    """[N, B, K], [N, D] -> [B, K, D] = sum_n X[n, b, :]^T Y[n, :], float32."""
+    """[N, B, K], [N, D] -> [B, K, D] = sum_n X[n, b, :]^T Y[n, :], float32.
+
+    One GEMM over the patch rows as they lie (reshaping an aligned buffer's
+    strided view would copy it)."""
     n, b, k = Xg.shape
-    return PR.matmul(Xg.reshape(n, b * k).mT, Y, precision).reshape(b, k, Y.shape[-1])
+    kp = _row_pitch(Xg)
+    rows = (Xg.reshape(n, b * k) if kp == k
+            else Xg.as_strided((n, b * kp), (Xg.stride(0), 1)))
+    return PR.matmul(rows.mT, Y, precision).reshape(b, kp, Y.shape[-1])[:, :k]
 
 
 def fit_block(X_train_g: torch.Tensor, Y_train: torch.Tensor, alpha, precision="highest",

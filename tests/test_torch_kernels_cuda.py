@@ -686,3 +686,66 @@ def test_blocked_cholesky_solve_on_the_card(cuda, tmp_path, k, pad):
     assert _waits_inside(events, "mdt.engine.solve") == []
     assert _waits_inside(events, "mdt.test.library_solve")
     assert float((W.double() - ref).norm() / ref.norm()) <= 1e-5
+
+
+def _aligned_and_dense_patches(device, n=8192, v=4000, b=4, k=750):
+    """bf16 patches of one gather [n, b, k] as ``gather_patches`` lays them
+    out (rows padded to 752 elements) and as a dense copy of the same values."""
+    from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+
+    gen = torch.Generator(device=device).manual_seed(k)
+    X = torch.randn((n, v), generator=gen, device=device).to(torch.bfloat16)
+    # k distinct neighbours a vertex, as a patch has: a repeated column
+    # would leave the gram singular but for alpha
+    idx = torch.argsort(torch.rand((b, v), generator=gen, device=device), dim=1)[:, :k]
+    aligned = E.gather_patches(X, idx)
+    assert aligned.stride() == (b * 752, 752, 1)
+    dense = aligned.contiguous()
+    assert torch.equal(aligned, dense)
+    return aligned, dense, gen
+
+
+def test_fit_on_aligned_bf16_patches_equals_the_dense_fit(cuda):
+    """``fit_block`` under ``--fast-math`` at N = 8192, K = 750 on the aligned
+    patches and on a dense copy: within 1e-5 of each other (the same bf16
+    operands and exact products; only the float32 sums' order may differ
+    with the GEMM cuBLAS picks), and each within 1e-4 of the float64 fit of
+    those operands (float32 sums over N = 8192 rows; they read 2.5e-5 on an
+    H100)."""
+    from multimodal_decoding_tpu_torch.decoding import searchlight_engine as E
+
+    aligned, dense, gen = _aligned_and_dense_patches(cuda)
+    Y = torch.randn((aligned.shape[0], 1024), generator=gen, device=cuda)
+    Xd = dense.double().permute(1, 0, 2)
+    Y16 = Y.to(torch.bfloat16).double()
+    A = Xd.mT @ Xd + torch.eye(750, device=cuda, dtype=torch.float64)
+    ref = torch.linalg.solve(A, Xd.mT @ Y16)
+    W_a = E.fit_block(aligned, Y, 1.0, precision="default")
+    W_d = E.fit_block(dense, Y, 1.0, precision="default")
+    rels = [float((W.double() - ref).norm() / ref.norm()) for W in (W_a, W_d)]
+    assert max(rels) <= 1e-4, rels
+    rel = float((W_a - W_d).norm() / W_d.norm())
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("scorer", ["fused-pallas", "fused-inv"])
+def test_fused_scorers_count_alike_on_aligned_and_dense_bf16_patches(cuda, scorer):
+    """The tensor-core count at ``default`` reads a fold of aligned bf16
+    patches in place (``tma_eligible``) and a dense fold from its padded
+    copy: the same counts from the same inv and U."""
+    aligned, dense, gen = _aligned_and_dense_patches(cuda)
+    b, k, nv = aligned.shape[1], aligned.shape[2], 1639
+    Xv_a, Xv_d = (p[:nv].permute(1, 0, 2) for p in (aligned, dense))
+    assert HM.tma_eligible(Xv_a) and not HM.tma_eligible(Xv_d)
+    S = torch.randn((b, 4 * k, k), generator=gen, device=cuda)
+    inv = torch.linalg.inv(S.mT @ S + k * torch.eye(k, device=cuda))
+    U = HM.padded_empty(b, k, nv, cuda).copy_(
+        torch.randn((b, k, nv), generator=gen, device=cuda))
+    if scorer == "fused-inv":
+        got = [HM.streamed_acc_from_inv(Xv, inv, U, "default") for Xv in (Xv_a, Xv_d)]
+    else:
+        Z = HM.factor_planes(inv, U, "default")
+        got = [HM.streamed_acc_from_factors(Xv, Z, "default") for Xv in (Xv_a, Xv_d)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    assert 0.4 < float(got[0].min()) and float(got[0].max()) < 0.6  # a count of noise

@@ -360,3 +360,146 @@ def test_unported_options_raise(problem):
         TE.score_and_null_block(preds, torch.zeros(1, 2, D), t["Y_test"], t["Y_imag"][:2],
                                 TE.TestLayout.from_stim_types(STIM_TYPES), t["shuffles"],
                                 t["derangements"][:1])
+
+
+# ---------------------------------------------------------------------------
+# The aligned layout of 16-bit patches (gather_patches)
+# ---------------------------------------------------------------------------
+
+
+def _aligned_gathers(fn):
+    """(fn's result, the ``mdt.engine.aligned_gather`` count while it ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_decoding_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    n = profiling.summary()["counters"].get("mdt.engine.aligned_gather", 0)
+    profiling.reset()
+    return out, n
+
+
+def _gather_inputs(k, dtype, masked, n=20, b=3, v=900):
+    gen = torch.Generator().manual_seed(k)
+    X = torch.randn((n, v), generator=gen).to(dtype)
+    idx = torch.randint(0, v, (b, k), generator=gen, dtype=torch.int32)
+    mask = torch.rand((b, k), generator=gen) > 0.3 if masked else None
+    dense = X[:, idx.long()]
+    if masked:
+        dense = dense * mask[None].to(dtype)
+    return X, idx, mask, dense
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("k", [750, 804, 13])
+def test_gather_patches_aligns_16_bit_rows(k, masked):
+    """bf16 patches whose rows are not 16 bytes apart come as the [N, B, K]
+    view of a buffer whose rows, vertices and pad columns are 8-element
+    aligned and zeroed past K, equal to the dense gather; one count a gather."""
+    X, idx, mask, dense = _gather_inputs(k, torch.bfloat16, masked)
+    got, n = _aligned_gathers(lambda: TE.gather_patches(X, idx, mask))
+    kp = -(-k // 8) * 8
+    assert n == 1
+    assert got.shape == dense.shape and torch.equal(got, dense)
+    assert got.stride() == (idx.shape[0] * kp, kp, 1)
+    assert got.stride(0) % 8 == 0 and got.stride(1) % 8 == 0
+    pad = got.as_strided((got.shape[0], got.shape[1], kp - k), got.stride(), k)
+    assert torch.all(pad == 0)
+    assert TE._row_pitch(got) == kp and TE._row_pitch(got[5:9]) == kp
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("dtype,k", [(torch.bfloat16, 8), (torch.bfloat16, 752),
+                                     (torch.float32, 750), (torch.float32, 13)],
+                         ids=["bf16-8", "bf16-752", "float32-750", "float32-13"])
+def test_gather_patches_keeps_dense_layouts(dtype, k, masked):
+    """Float32 patches, and bf16 patches whose rows are already 16 bytes
+    apart, keep the dense [N, B, K] layout, uncounted."""
+    X, idx, mask, dense = _gather_inputs(k, dtype, masked)
+    got, n = _aligned_gathers(lambda: TE.gather_patches(X, idx, mask))
+    assert n == 0
+    assert torch.equal(got, dense) and got.stride() == (idx.shape[0] * k, k, 1)
+    assert TE._row_pitch(got) == k
+
+
+def _fast_math_inputs(problem):
+    t = _torch_inputs(problem)
+    t["X_all"] = t["X_all"].to(torch.bfloat16)
+    return t
+
+
+def _dense_gather(X, idx, mask=None):
+    patches = X[:, idx.long()]
+    return patches if mask is None else patches * mask[None].to(patches.dtype)
+
+
+def test_aligned_patch_slices_start_16_bytes_apart(problem):
+    """The train, test and imagery slices of one aligned gather (K = 6: rows
+    of 12 bytes) each start a multiple of 8 elements into the buffer."""
+    t = _fast_math_inputs(problem)
+    for part in TE._split_patches(t["X_all"], t["idx"], None, N_TRAIN, N_TEST):
+        assert part.storage_offset() % 8 == 0 and part.stride() == (B * 8, 8, 1)
+
+
+def _block_call(name, t, patches):
+    """One of the engine's functions under ``--fast-math``'s precision on the
+    given [N_all, B, K] patches."""
+    Xtr, Xte = patches[:N_TRAIN], patches[N_TRAIN:N_TRAIN + N_TEST]
+    if name == "fit_block":
+        return TE.fit_block(Xtr, t["Y_train"], FIXED_ALPHA, precision="default")
+    if name == "predict_block":
+        W = torch.as_tensor(np.random.RandomState(3).randn(B, K, D).astype(np.float32))
+        return TE.predict_block(Xte, W.to(torch.bfloat16), "default",
+                                out_dtype=torch.bfloat16).float()
+    scorer, cv_dtype = name.split(":")[1:]
+    return TE.fit_block_cv(Xtr, t["Y_train"], t["alphas"], precision="default",
+                           cv_precision="default", cv_scorer=scorer,
+                           cv_dtype=None if cv_dtype == "none" else torch.bfloat16)
+
+
+_BLOCK_CALLS = ["fit_block", "predict_block"] + [
+    f"fit_block_cv:{scorer}:{dt}" for scorer, dt in
+    (("xla", "none"), ("pallas", "bf16"), ("fused", "none"), ("fused-pallas", "bf16"),
+     ("fused-pallas", "none"), ("fused-inv", "none"))]
+
+
+@pytest.mark.parametrize("name", _BLOCK_CALLS)
+def test_block_functions_on_aligned_patches_equal_a_dense_copy(problem, name):
+    """The fit, predictions and CV selection on aligned bf16 patches against
+    the same calls on a dense copy: the same bf16 operands, exact products
+    and float32 sums, in another order at most; equal selections and scores."""
+    t = _fast_math_inputs(problem)
+    aligned = TE.gather_patches(t["X_all"], t["idx"])
+    assert aligned.stride(1) == 8
+    dense = _dense_gather(t["X_all"], t["idx"])
+    got, ref = _block_call(name, t, aligned), _block_call(name, t, dense)
+    if name.startswith("fit_block_cv"):
+        (got, best_g, scores_g), (ref, best_r, scores_r) = got, ref
+        assert torch.equal(best_g, best_r) and torch.equal(scores_g, scores_r)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_block_step_with_null_on_aligned_patches_equals_a_dense_copy(problem, monkeypatch,
+                                                                     masked):
+    """``searchlight_block_with_null`` under ``--fast-math``: equal scores and
+    nulls whether the step gathers aligned or dense patches, and one
+    ``mdt.engine.aligned_gather`` a step."""
+    t = _fast_math_inputs(problem)
+    mask = (torch.as_tensor(np.random.RandomState(4).rand(B, K)) > 0.2) if masked else None
+
+    def step():
+        return TE.searchlight_block_with_null(
+            t["X_all"], t["Y_train"], t["Y_test"], t["Y_imag"], t["idx"], mask, FIXED_ALPHA,
+            t["shuffles"], t["derangements"], layout=TE.TestLayout.from_stim_types(STIM_TYPES),
+            precision="default", **COMMON)
+
+    got, n = _aligned_gathers(lambda: (step(), step())[0])
+    assert n == 2
+    monkeypatch.setattr(TE, "gather_patches", _dense_gather)
+    ref, n = _aligned_gathers(step)
+    assert n == 0
+    for g, r in zip(to_numpy(got), to_numpy(ref)):
+        _assert_equal_dicts(r, g)
