@@ -63,7 +63,11 @@ from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.io import artifacts
 from multimodal_decoding_tpu_torch.io.surface import knn_adjacency, radius_adjacency
 from multimodal_decoding_tpu_torch.ops import metrics as M
-from multimodal_decoding_tpu_torch.ops.precision import default_cv_dtype, default_cv_precision
+from multimodal_decoding_tpu_torch.ops.precision import (
+    default_cv_dtype,
+    default_cv_precision,
+    default_cv_solver,
+)
 from multimodal_decoding_tpu_torch.parallel.ingest import (
     NpzMemberReader,
     streamed_scaler_fit,
@@ -77,25 +81,6 @@ from multimodal_decoding_tpu_torch.parallel.mesh import (
 )
 from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 from multimodal_decoding_tpu_torch.utils.runlog import RunLogger
-
-
-def default_cv_solver(device=None) -> str:
-    """The CV-selection solver for ``device`` (``None``: the default device).
-
-    "schur-pallas" on CUDA, so the main path runs the hand-written panel
-    kernel; chip_smoke.py's selection gate holds it to the strict path.
-    Elsewhere "schur-cb", as the JAX package chooses off the TPU.
-    """
-    if device is None:
-        on_cuda = torch.cuda.is_available()
-    else:
-        on_cuda = resolve_device(device).type == "cuda"
-    return "schur-pallas" if on_cuda else "schur-cb"
-
-
-def default_null_gather() -> str:
-    """Null-score permuted-diagonal formulation: the plain gather."""
-    return "gather"
 
 
 def precision_arguments(fast_math: bool, fast_cv: bool = True, alphas_cv=None,

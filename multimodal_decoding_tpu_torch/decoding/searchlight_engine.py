@@ -13,7 +13,8 @@ once per block.
 Layouts at the public functions are the JAX package's (``[N, B, K]``
 patches, ``[B, K, D]`` weights, ``[B, M, D]`` predictions), so the tests
 compare like with like.  The block steps are plain functions; PyTorch runs
-them eagerly.
+them eagerly.  The four public steps are wrappers of one ``_block_step``,
+and the three public score functions of one ``_score_families``.
 
 Every CV fold scorer of the JAX package is here: ``"xla"``, ``"strict"``,
 and the streamed-count scorers ``"pallas"``, ``"fused-pallas"`` and
@@ -160,7 +161,6 @@ def fit_block_cv(
     cv_solver: str | None = None,
     cv_scorer: str = "xla",
     cv_dtype=None,
-    cv_unroll: bool = False,
     cv_alpha_batch: bool | int = False,
 ):
     """Per-vertex alpha selection via K-fold CV (sklearn-split parity).
@@ -194,17 +194,15 @@ def fit_block_cv(
 
     ``cv_alpha_batch`` (``True`` or a chunk that divides the alpha count;
     "xla" scorer only) inverts ``chunk`` alpha-shifted systems in one
-    ``spd_inverse`` call over ``[chunk * B, K, K]``.  ``cv_unroll`` is the
-    same sweep: the JAX package unrolls its ``lax.map`` over alphas so XLA
-    can overlap them, and PyTorch, which runs eagerly, already issues the
-    alphas one after another, so there is nothing to unroll.
+    ``spd_inverse`` call over ``[chunk * B, K, K]``.  The JAX package's
+    ``cv_unroll`` has no counterpart: it unrolls a ``lax.map`` over alphas,
+    and the eager sweep here already issues the alphas one after another.
     """
     if cv_scorer not in CV_SCORERS:
         raise ValueError(f"unknown cv_scorer {cv_scorer!r}; use one of {CV_SCORERS}")
     if cv_alpha_batch and cv_scorer != "xla":
         # the alpha-batched sweep implements only the xla fold scorer
         raise ValueError(f"cv_alpha_batch requires cv_scorer='xla'; got {cv_scorer!r}")
-    del cv_unroll  # the eager sweep is already "unrolled" (see above)
     cv_precision = precision if cv_precision is None else cv_precision
     cv_solver = solver if cv_solver is None else cv_solver
     n = X_train_g.shape[0]
@@ -324,56 +322,14 @@ class TestLayout:
         )
 
 
-def _acc(dist):
-    return M.pairwise_acc_from_dist(dist)
-
-
-def _sel(layout_sel, device) -> torch.Tensor:
-    return torch.as_tensor(layout_sel, dtype=torch.long, device=device)
-
-
-def score_block(
-    preds_test: torch.Tensor,
-    preds_imag: torch.Tensor,
-    Y_test: torch.Tensor,
-    Y_imag: torch.Tensor,
-    layout: TestLayout,
-    comp_cross_decoding_scores: bool = True,
-) -> dict:
-    """Full main score family for a vertex block -> {metric: [B]}.
-
-    calc_all_pairwise_accuracy_scores(standardize_predictions=True) plus
-    the *_no_std imagery variants (reference searchlight.py:81-88).
-    """
-    cap = _sel(layout.caption_sel, preds_test.device)
-    img = _sel(layout.image_sel, preds_test.device)
-
-    P_cap = M.standardize(preds_test[:, cap, :])
-    P_img = M.standardize(preds_test[:, img, :])
-    L_cap = Y_test[cap]
-    L_img = Y_test[img]
-
-    out = {
-        M.ACC_CAPTIONS: _acc(M.cosine_distances(P_cap, L_cap)),
-        M.ACC_IMAGES: _acc(M.cosine_distances(P_img, L_img)),
-    }
-    if comp_cross_decoding_scores:
-        out[M.ACC_CROSS_CAPTIONS_TO_IMAGES] = _acc(M.cosine_distances(P_cap, L_img))
-        out[M.ACC_CROSS_IMAGES_TO_CAPTIONS] = _acc(M.cosine_distances(P_img, L_cap))
-
-    P_im_std = M.standardize(preds_imag)
-    L_whole = torch.cat((Y_imag, Y_test), dim=0)
-    out[M.ACC_IMAGERY] = _acc(M.cosine_distances(P_im_std, Y_imag))
-    out[M.ACC_IMAGERY_WHOLE_TEST] = _acc(M.cosine_distances(P_im_std, L_whole))
-    out[M.ACC_IMAGERY + "_no_std"] = _acc(M.cosine_distances(preds_imag, Y_imag))
-    out[M.ACC_IMAGERY_WHOLE_TEST + "_no_std"] = _acc(M.cosine_distances(preds_imag, L_whole))
-    return out
-
-
 # number of metric families null_score_block emits: captions, images, and
 # the two imagery variants each with a _no_std twin.  The runner sizes its
 # flush budget from this.
 N_NULL_METRICS = 6
+
+
+def _sel(layout_sel, device) -> torch.Tensor:
+    return torch.as_tensor(layout_sel, dtype=torch.long, device=device)
 
 
 def _rank_counts(dist: torch.Tensor) -> torch.Tensor:
@@ -427,14 +383,78 @@ def _local_shuffles(shuffles: torch.Tensor, sel: torch.Tensor, n_test: int) -> t
     return inv[shuffles.long()[:, sel]]
 
 
-def _check_three_imagery(preds_imag: torch.Tensor) -> int:
-    n_imag = preds_imag.shape[-2]
-    if n_imag != 3:
-        raise ValueError(
-            "null scoring uses the reference's 3-element imagery derangements "
-            f"(searchlight.py:35); got {n_imag} imagery stimuli"
-        )
-    return n_imag
+def _score_families(preds_test, preds_imag, Y_test, Y_imag, layout: TestLayout,
+                    comp_cross: bool = True, null=None) -> tuple:
+    """The main score family and, with ``null = (shuffles,
+    imagery_derangements, null_gather)``, the null family -> ``(main, null
+    or None)``.
+
+    Each family's cosine distances are formed once.  With nulls, its main
+    accuracy is the rank counts' diagonal (the identity permutation's
+    gather), so one C serves both outputs; without, it is
+    ``M.pairwise_acc_from_dist``, the same comparisons without C.  Keys:
+    main in ``score_block``'s order, null in ``null_score_block``'s.
+    """
+    if null is not None:
+        shuffles, imagery_derangements, null_gather = null
+        if preds_imag.shape[-2] != 3:
+            raise ValueError(
+                "null scoring uses the reference's 3-element imagery derangements "
+                f"(searchlight.py:35); got {preds_imag.shape[-2]} imagery stimuli")
+    device = preds_test.device
+    cap = _sel(layout.caption_sel, device)
+    img = _sel(layout.image_sel, device)
+    der_idx = None if null is None else _derangement_idx(imagery_derangements)
+    main, nulls = {}, None if null is None else {}
+
+    def family(name, P, L, perm=None):
+        """``name``'s main accuracy of P against L, and its nulls where
+        ``perm`` (called after the main accuracy) gives the permuted columns."""
+        dist = M.cosine_distances(P, L)
+        if nulls is None or perm is None:
+            main[name] = M.pairwise_acc_from_dist(dist)
+            return
+        n, m = dist.shape[-2:]
+        C = _rank_counts(dist)
+        diag = torch.diagonal(C, dim1=-2, dim2=-1)
+        main[name] = M.count_ratio(torch.sum(diag, dim=-1), n * m - min(n, m))
+        nulls[name] = M.count_ratio(
+            torch.sum(_gather_perm_diag(C, perm(), null_gather), dim=-1), n * m - n)
+
+    def local(sel):
+        return lambda: _local_shuffles(shuffles, sel, Y_test.shape[0])
+
+    P_cap = M.standardize(preds_test[:, cap, :])
+    P_img = M.standardize(preds_test[:, img, :])
+    L_cap = Y_test[cap]
+    L_img = Y_test[img]
+    family(M.ACC_CAPTIONS, P_cap, L_cap, local(cap))
+    family(M.ACC_IMAGES, P_img, L_img, local(img))
+    if comp_cross:
+        family(M.ACC_CROSS_CAPTIONS_TO_IMAGES, P_cap, L_img)
+        family(M.ACC_CROSS_IMAGES_TO_CAPTIONS, P_img, L_cap)
+    L_whole = torch.cat((Y_imag, Y_test), dim=0)
+    for suffix, P_im in (("", M.standardize(preds_imag)), ("_no_std", preds_imag)):
+        family(M.ACC_IMAGERY + suffix, P_im, Y_imag, lambda: der_idx)
+        family(M.ACC_IMAGERY_WHOLE_TEST + suffix, P_im, L_whole, lambda: der_idx)
+    return main, nulls
+
+
+def score_block(
+    preds_test: torch.Tensor,
+    preds_imag: torch.Tensor,
+    Y_test: torch.Tensor,
+    Y_imag: torch.Tensor,
+    layout: TestLayout,
+    comp_cross_decoding_scores: bool = True,
+) -> dict:
+    """Full main score family for a vertex block -> {metric: [B]}.
+
+    calc_all_pairwise_accuracy_scores(standardize_predictions=True) plus
+    the *_no_std imagery variants (reference searchlight.py:81-88).
+    """
+    return _score_families(preds_test, preds_imag, Y_test, Y_imag, layout,
+                           comp_cross_decoding_scores)[0]
 
 
 def null_score_block(
@@ -453,32 +473,8 @@ def null_score_block(
     ``imagery_derangements`` [B, P] selects one of the two 3-element
     derangements per (vertex, shuffle) (reference searchlight.py:61-79).
     """
-    n_imag = _check_three_imagery(preds_imag)
-    device = preds_test.device
-    cap = _sel(layout.caption_sel, device)
-    img = _sel(layout.image_sel, device)
-    der_idx = _derangement_idx(imagery_derangements)
-
-    def modality_score(P_std, L, sel):
-        C = _rank_counts(M.cosine_distances(P_std, L))
-        local = _local_shuffles(shuffles, sel, Y_test.shape[0])
-        n = len(sel)
-        return M.count_ratio(torch.sum(_gather_perm_diag(C, local, null_gather), dim=-1), n * n - n)
-
-    out = {
-        M.ACC_CAPTIONS: modality_score(M.standardize(preds_test[:, cap, :]), Y_test[cap], cap),
-        M.ACC_IMAGES: modality_score(M.standardize(preds_test[:, img, :]), Y_test[img], img),
-    }
-    L_whole = torch.cat((Y_imag, Y_test), dim=0)
-    for suffix, P_im in (("", M.standardize(preds_imag)), ("_no_std", preds_imag)):
-        C_im = _rank_counts(M.cosine_distances(P_im, Y_imag))  # [B, 3, 3]
-        g = _gather_perm_diag(C_im, der_idx, null_gather)
-        out[M.ACC_IMAGERY + suffix] = M.count_ratio(torch.sum(g, dim=-1), n_imag * n_imag - n_imag)
-        C_iw = _rank_counts(M.cosine_distances(P_im, L_whole))  # [B, 3, 3+n_test]
-        g = _gather_perm_diag(C_iw, der_idx, null_gather)
-        m = L_whole.shape[0]
-        out[M.ACC_IMAGERY_WHOLE_TEST + suffix] = M.count_ratio(torch.sum(g, dim=-1), n_imag * m - n_imag)
-    return out
+    return _score_families(preds_test, preds_imag, Y_test, Y_imag, layout, False,
+                           (shuffles, imagery_derangements, null_gather))[1]
 
 
 def score_and_null_block(
@@ -492,67 +488,11 @@ def score_and_null_block(
     comp_cross_decoding_scores: bool = True,
     null_gather: str = "gather",
 ) -> tuple:
-    """Main + null score families sharing the distance/rank-count tensors.
-
-    The main accuracy is the rank-count diagonal (the identity-permutation
-    gather), so one distance matrix and one C per metric family serve both
-    outputs, with the same comparisons as score_block/null_score_block.
-    """
-    n_imag = _check_three_imagery(preds_imag)
-    device = preds_test.device
-    cap = _sel(layout.caption_sel, device)
-    img = _sel(layout.image_sel, device)
-    der_idx = _derangement_idx(imagery_derangements)
-
-    def main_acc_from_counts(C, n, m):
-        diag = torch.diagonal(C, dim1=-2, dim2=-1)
-        return M.count_ratio(torch.sum(diag, dim=-1), n * m - min(n, m))
-
-    P_cap = M.standardize(preds_test[:, cap, :])
-    P_img = M.standardize(preds_test[:, img, :])
-    L_cap = Y_test[cap]
-    L_img = Y_test[img]
-
-    main, null = {}, {}
-
-    def modality(P_std, L, sel, name):
-        n = len(sel)
-        C = _rank_counts(M.cosine_distances(P_std, L))
-        main[name] = main_acc_from_counts(C, n, n)
-        local = _local_shuffles(shuffles, sel, Y_test.shape[0])
-        null[name] = M.count_ratio(torch.sum(_gather_perm_diag(C, local, null_gather), dim=-1), n * n - n)
-
-    modality(P_cap, L_cap, cap, M.ACC_CAPTIONS)
-    modality(P_img, L_img, img, M.ACC_IMAGES)
-    if comp_cross_decoding_scores:
-        main[M.ACC_CROSS_CAPTIONS_TO_IMAGES] = _acc(M.cosine_distances(P_cap, L_img))
-        main[M.ACC_CROSS_IMAGES_TO_CAPTIONS] = _acc(M.cosine_distances(P_img, L_cap))
-
-    L_whole = torch.cat((Y_imag, Y_test), dim=0)
-    m_whole = L_whole.shape[0]
-    for suffix, P_im in (("", M.standardize(preds_imag)), ("_no_std", preds_imag)):
-        C_im = _rank_counts(M.cosine_distances(P_im, Y_imag))
-        main[M.ACC_IMAGERY + suffix] = main_acc_from_counts(C_im, n_imag, n_imag)
-        null[M.ACC_IMAGERY + suffix] = M.count_ratio(torch.sum(
-            _gather_perm_diag(C_im, der_idx, null_gather), dim=-1
-        ), n_imag * n_imag - n_imag)
-
-        C_iw = _rank_counts(M.cosine_distances(P_im, L_whole))
-        main[M.ACC_IMAGERY_WHOLE_TEST + suffix] = main_acc_from_counts(C_iw, n_imag, m_whole)
-        null[M.ACC_IMAGERY_WHOLE_TEST + suffix] = M.count_ratio(torch.sum(
-            _gather_perm_diag(C_iw, der_idx, null_gather), dim=-1
-        ), n_imag * m_whole - n_imag)
-
-    # key order parity with score_block/null_score_block outputs
-    main_order = [M.ACC_CAPTIONS, M.ACC_IMAGES]
-    if comp_cross_decoding_scores:
-        main_order += [M.ACC_CROSS_CAPTIONS_TO_IMAGES, M.ACC_CROSS_IMAGES_TO_CAPTIONS]
-    main_order += [M.ACC_IMAGERY, M.ACC_IMAGERY_WHOLE_TEST,
-                   M.ACC_IMAGERY + "_no_std", M.ACC_IMAGERY_WHOLE_TEST + "_no_std"]
-    null_order = [M.ACC_CAPTIONS, M.ACC_IMAGES,
-                  M.ACC_IMAGERY, M.ACC_IMAGERY_WHOLE_TEST,
-                  M.ACC_IMAGERY + "_no_std", M.ACC_IMAGERY_WHOLE_TEST + "_no_std"]
-    return ({k: main[k] for k in main_order}, {k: null[k] for k in null_order})
+    """Main + null score families sharing the distance/rank-count tensors:
+    ``(score_block``'s dict, ``null_score_block``'s dict)."""
+    return _score_families(preds_test, preds_imag, Y_test, Y_imag, layout,
+                           comp_cross_decoding_scores,
+                           (shuffles, imagery_derangements, null_gather))
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +506,32 @@ def _split_patches(X_all, idx, mask, n_train, n_test):
     return patches[:n_train], patches[n_train:n_train + n_test], patches[n_train + n_test:]
 
 
+def _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, null, *, layout, n_train,
+                n_test, comp_cross, precision, solver, cv=None):
+    """The block step behind the four public ones: gather -> fit -> predict
+    -> score, inside ``mdt.engine.step``.
+
+    ``alpha`` is the fixed alpha, or with ``cv`` (``fit_block_cv``'s
+    selection arguments) the CV grid; ``null`` is ``(shuffles,
+    imagery_derangements, null_gather)`` or None.  Returns ``(main, null or
+    None)``, with ``best_alpha`` among the main maps under CV.
+    """
+    with span("mdt.engine.step"):
+        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
+        if cv is None:
+            W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
+        else:
+            W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alpha, precision=precision,
+                                            solver=solver, **cv)
+        with span("mdt.engine.score"):
+            main, nulls = _score_families(predict_block(Xte, W, precision),
+                                          predict_block(Xim, W, precision), Y_test, Y_imag,
+                                          layout, comp_cross, null)
+    if cv is not None:
+        main["best_alpha"] = best_alpha
+    return main, nulls
+
+
 def searchlight_block(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, *,
                       layout: TestLayout, n_train: int, n_test: int,
                       comp_cross: bool = True, precision="highest",
@@ -575,13 +541,9 @@ def searchlight_block(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, *,
     X_all [N_all, V] = concat(train, test, imagery) rows (float32, or bf16
     storage under fast math); idx [B, K]; mask [B, K] or None.
     """
-    with span("mdt.engine.step"):
-        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-        W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
-        with span("mdt.engine.score"):
-            return score_block(predict_block(Xte, W, precision),
-                               predict_block(Xim, W, precision),
-                               Y_test, Y_imag, layout, comp_cross_decoding_scores=comp_cross)
+    return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, None, layout=layout,
+                       n_train=n_train, n_test=n_test, comp_cross=comp_cross,
+                       precision=precision, solver=solver)[0]
 
 
 def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
@@ -590,15 +552,10 @@ def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha
                                 comp_cross: bool = True, precision="highest",
                                 solver: str = "cholesky", null_gather: str = "gather"):
     """Block step that also emits the per-shuffle null score family."""
-    with span("mdt.engine.step"):
-        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-        W = fit_block(Xtr, Y_train, alpha, precision=precision, solver=solver)
-        with span("mdt.engine.score"):
-            return score_and_null_block(
-                predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test,
-                Y_imag, layout, shuffles, imagery_derangements,
-                comp_cross_decoding_scores=comp_cross, null_gather=null_gather,
-            )
+    return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
+                       (shuffles, imagery_derangements, null_gather), layout=layout,
+                       n_train=n_train, n_test=n_test, comp_cross=comp_cross,
+                       precision=precision, solver=solver)
 
 
 def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas,
@@ -608,29 +565,19 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
                                    precision="highest", solver: str = "cholesky",
                                    cv_precision=None, cv_solver: str | None = None,
                                    cv_scorer: str = "xla", cv_dtype=None,
-                                   cv_unroll: bool = False, cv_alpha_batch: bool = False,
+                                   cv_alpha_batch: bool = False,
                                    null_gather: str = "gather"):
     """CV block step that also emits the per-shuffle null score family.
 
     The main path: each vertex's null scores come from the decoder refit at
     that vertex's CV-selected alpha.
     """
-    with span("mdt.engine.step"):
-        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-        W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
-                                        solver=solver, cv_precision=cv_precision,
-                                        cv_solver=cv_solver, cv_scorer=cv_scorer,
-                                        cv_dtype=cv_dtype, cv_unroll=cv_unroll,
-                                        cv_alpha_batch=cv_alpha_batch)
-        with span("mdt.engine.score"):
-            main, null = score_and_null_block(
-                predict_block(Xte, W, precision), predict_block(Xim, W, precision), Y_test,
-                Y_imag, layout, shuffles, imagery_derangements,
-                comp_cross_decoding_scores=comp_cross, null_gather=null_gather,
-            )
-    main = dict(main)
-    main["best_alpha"] = best_alpha
-    return main, null
+    cv = dict(n_splits=n_splits, cv_precision=cv_precision, cv_solver=cv_solver,
+              cv_scorer=cv_scorer, cv_dtype=cv_dtype, cv_alpha_batch=cv_alpha_batch)
+    return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas,
+                       (shuffles, imagery_derangements, null_gather), layout=layout,
+                       n_train=n_train, n_test=n_test, comp_cross=comp_cross,
+                       precision=precision, solver=solver, cv=cv)
 
 
 def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
@@ -639,18 +586,10 @@ def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
                          precision="highest", solver: str = "cholesky",
                          cv_precision=None, cv_solver: str | None = None,
                          cv_scorer: str = "xla", cv_dtype=None,
-                         cv_unroll: bool = False, cv_alpha_batch: bool = False):
+                         cv_alpha_batch: bool = False):
     """Block step with per-vertex CV alpha selection."""
-    with span("mdt.engine.step"):
-        Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
-        W, best_alpha, _ = fit_block_cv(Xtr, Y_train, alphas, n_splits, precision=precision,
-                                        solver=solver, cv_precision=cv_precision,
-                                        cv_solver=cv_solver, cv_scorer=cv_scorer,
-                                        cv_dtype=cv_dtype, cv_unroll=cv_unroll,
-                                        cv_alpha_batch=cv_alpha_batch)
-        with span("mdt.engine.score"):
-            scores = dict(score_block(predict_block(Xte, W, precision),
-                                      predict_block(Xim, W, precision), Y_test, Y_imag,
-                                      layout, comp_cross_decoding_scores=comp_cross))
-    scores["best_alpha"] = best_alpha
-    return scores
+    cv = dict(n_splits=n_splits, cv_precision=cv_precision, cv_solver=cv_solver,
+              cv_scorer=cv_scorer, cv_dtype=cv_dtype, cv_alpha_batch=cv_alpha_batch)
+    return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, None, layout=layout,
+                       n_train=n_train, n_test=n_test, comp_cross=comp_cross,
+                       precision=precision, solver=solver, cv=cv)[0]

@@ -52,6 +52,7 @@ from multimodal_decoding_tpu_torch.data.preprocess import (
 )
 from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
 from multimodal_decoding_tpu_torch.ops import metrics as M
+from multimodal_decoding_tpu_torch.ops.precision import default_wb_cv_solver
 from multimodal_decoding_tpu_torch.ops.ridge import (
     dual_ridge_predict,
     ridge_cv_dual,
@@ -137,18 +138,6 @@ class GramCache:
         cache.K, cache.K_test, cache.K_imag = K, K_test, K_imag
         cache.device, cache.gram_seconds = K.device, 0.0
         return cache
-
-
-def default_wb_cv_solver(device=None) -> str | None:
-    """The whole-brain CV selection solver for ``device`` (``None``: cuda).
-
-    "schur-pallas" on CUDA: its base blocks run the hand-written panel
-    kernel, and chip_smoke.py's ``wb_gate`` phase holds it to the strict
-    Cholesky oracle on planted-signal problems at production shape.  None
-    (the strict oracle) on the CPU, as the JAX package chooses off the TPU.
-    The refit is the strict Cholesky solve either way.
-    """
-    return "schur-pallas" if resolve_device(device).type == "cuda" else None
 
 
 def decode_single(

@@ -23,15 +23,18 @@ are folded into the rows or expanded first), each GEMM counted as
 ``mdt.precision.bf16`` (``utils/profiling.count``).  A bf16 operand at
 ``"default"`` goes to it as it is.  TF32 stays off throughout.
 
-``default_cv_precision`` and ``default_cv_dtype`` are the selection path's
-shipped settings per device, read by the searchlight, the whole-brain CV and
-the sharded step as the JAX package reads its per-platform functions.
+The selection path's shipped settings per device live here alone:
+``default_cv_solver`` and ``default_wb_cv_solver`` (the searchlight's and
+the whole-brain CV's solver), ``default_cv_precision`` and
+``default_cv_dtype``.  The searchlight, the whole-brain CV and the sharded
+step read them as the JAX package reads its per-platform functions.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.utils.profiling import count
 
 PRECISIONS = ("highest", "high", "default")
@@ -44,6 +47,33 @@ def resolve(precision) -> str:
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; use one of {PRECISIONS}")
     return precision
+
+
+def default_cv_solver(device=None) -> str:
+    """The searchlight's CV-selection solver for ``device`` (``None``: the
+    default device).
+
+    "schur-pallas" on CUDA, so the main path runs the hand-written panel
+    kernel; chip_smoke.py's selection gate holds it to the strict path.
+    Elsewhere "schur-cb", as the JAX package chooses off the TPU.
+    """
+    if device is None:
+        on_cuda = torch.cuda.is_available()
+    else:
+        on_cuda = resolve_device(device).type == "cuda"
+    return "schur-pallas" if on_cuda else "schur-cb"
+
+
+def default_wb_cv_solver(device=None) -> str | None:
+    """The whole-brain CV selection solver for ``device`` (``None``: cuda).
+
+    "schur-pallas" on CUDA: its base blocks run the hand-written panel
+    kernel, and chip_smoke.py's ``wb_gate`` phase holds it to the strict
+    Cholesky oracle on planted-signal problems at production shape.  None
+    (the strict oracle) on the CPU, as the JAX package chooses off the TPU.
+    The refit is the strict Cholesky solve either way.
+    """
+    return "schur-pallas" if resolve_device(device).type == "cuda" else None
 
 
 def default_cv_precision(device=None) -> str:

@@ -30,6 +30,7 @@ from multimodal_decoding_tpu_torch.decoding.searchlight_engine import (
     searchlight_block_cv,
 )
 from multimodal_decoding_tpu_torch.device import as_float32
+from multimodal_decoding_tpu_torch.ops import precision as PR
 from multimodal_decoding_tpu_torch.ops.ridge import (
     cross_matrix,
     dual_ridge_fit,
@@ -83,31 +84,16 @@ def sharded_searchlight_step(mesh, layout: TestLayout, n_train: int, n_test: int
 
 
 def sharded_searchlight_cv_step(mesh, layout: TestLayout, n_train: int, n_test: int,
-                                alphas, cv_solver: str | None = None, cv_dtype="shipped",
+                                alphas, cv_solver: str | None = None, cv_dtype=None,
                                 cv_precision=None):
-    """A vertex-sharded alpha-CV searchlight block step (the shipped config).
+    """A vertex-sharded alpha-CV searchlight block step.
 
-    Selection runs the shipped settings of ``mesh.device`` by default, as the
-    production driver does: ``cv_solver=None`` resolves through
-    ``decoding.searchlight.default_cv_solver`` (``"schur-pallas"`` on CUDA,
-    so each rank's CV base blocks launch the hand-written panel kernel),
-    ``cv_dtype="shipped"`` through ``default_cv_dtype`` and
-    ``cv_precision=None`` through ``default_cv_precision``.  The refit is the
-    strict Cholesky solve.  Returns fn as ``sharded_searchlight_step`` does,
-    with ``best_alpha`` among the maps.
+    ``cv_solver``, ``cv_dtype`` and ``cv_precision`` mean what they mean in
+    ``searchlight_block_cv`` (None: the strict settings); the shipped ones
+    of a device are ``ops/precision``'s ``default_cv_*`` functions.  The
+    refit is the strict Cholesky solve.  Returns fn as
+    ``sharded_searchlight_step`` does, with ``best_alpha`` among the maps.
     """
-    from multimodal_decoding_tpu_torch.decoding.searchlight import (
-        default_cv_dtype,
-        default_cv_precision,
-        default_cv_solver,
-    )
-
-    if cv_solver is None:
-        cv_solver = default_cv_solver(mesh.device)
-    if cv_dtype == "shipped":
-        cv_dtype = default_cv_dtype(mesh.device)
-    if cv_precision is None:
-        cv_precision = default_cv_precision(mesh.device)
     alphas_d = torch.as_tensor(alphas, dtype=torch.float32, device=mesh.device)
 
     def fn(X_all, Y_train, Y_test, Y_imag, idx):
@@ -157,11 +143,6 @@ def multichip_training_step(mesh_v, mesh_f):
     Returns (whole-brain predictions, {metric: [v] scores}) as numpy, the
     same on every rank.
     """
-    from multimodal_decoding_tpu_torch.decoding.searchlight import (
-        default_cv_dtype,
-        default_cv_precision,
-        default_cv_solver,
-    )
     from multimodal_decoding_tpu_torch.ops.stats import group_permutations
 
     n_dev = mesh_v.size
@@ -203,10 +184,12 @@ def multichip_training_step(mesh_v, mesh_f):
 
     # (3) vertex-sharded alpha-CV block at the shipped selection settings
     dev = mesh_v.device
-    print(f"multichip CV step shipped config: cv_solver={default_cv_solver(dev)}, "
-          f"cv_dtype={default_cv_dtype(dev)}, cv_precision={default_cv_precision(dev)}")
+    shipped = dict(cv_solver=PR.default_cv_solver(dev), cv_dtype=PR.default_cv_dtype(dev),
+                   cv_precision=PR.default_cv_precision(dev))
+    print("multichip CV step shipped config: "
+          + ", ".join(f"{k}={v}" for k, v in shipped.items()))
     cv_step = sharded_searchlight_cv_step(mesh_v, layout, n_train, n_test,
-                                          alphas=[1e-1, 1e1, 1e3])
+                                          alphas=[1e-1, 1e1, 1e3], **shipped)
     cv_scores = cv_step(X_all_rep, Y_train, Y_test, Y_imag, idx)
     scores = dict(scores, **{f"cv_{m}": s for m, s in cv_scores.items()})
 

@@ -148,7 +148,8 @@ def run_searchlight(
     ``dtype``: the storage of the device ``X_all`` built here
     (``torch.bfloat16`` under fast math; a given ``x_all_device`` keeps its
     own).  ``precision``, ``cv_precision``, ``cv_solver``, ``cv_scorer`` and
-    ``cv_dtype`` pass through to the engine's block steps.
+    ``cv_dtype`` pass through to the engine's block steps, as does
+    ``null_gather`` (None: ``"gather"``).
     """
     device = mesh.device if mesh is not None else resolve_device(device)
     n_ranks = mesh.size if mesh is not None else 1
@@ -198,12 +199,6 @@ def run_searchlight(
     n_perms = len(shuffles) if use_null else None
     if use_null:
         shuffles_d = to_dev(shuffles, torch.int64)
-        if null_gather is None:
-            from multimodal_decoding_tpu_torch.decoding.searchlight import (
-                default_null_gather,
-            )
-
-            null_gather = default_null_gather()
         if imagery_derangements is not None and (
                 imagery_derangements.shape != (n_blocks * block_size, n_perms)):
             raise ValueError(
@@ -254,9 +249,17 @@ def run_searchlight(
             )
             os.replace(tmp, checkpoint_path)
 
-    common = dict(layout=layout, n_train=n_train, n_test=n_test, precision=precision)
-    cv_kw = dict(cv_precision=cv_precision, cv_solver=cv_solver, cv_scorer=cv_scorer,
-                 cv_dtype=cv_dtype)
+    # the step is looked up here, by its name in this module, so a step
+    # wrapped under that name before the call runs every block
+    step = {(False, False): searchlight_block, (False, True): searchlight_block_with_null,
+            (True, False): searchlight_block_cv,
+            (True, True): searchlight_block_cv_with_null}[use_cv, use_null]
+    step_kw = dict(layout=layout, n_train=n_train, n_test=n_test, precision=precision)
+    if use_cv:
+        step_kw.update(cv_precision=cv_precision, cv_solver=cv_solver, cv_scorer=cv_scorer,
+                       cv_dtype=cv_dtype)
+    if use_null:
+        step_kw["null_gather"] = "gather" if null_gather is None else null_gather
     t0 = time.perf_counter()
     for b in range(n_blocks):
         if b <= ckpt_done:
@@ -271,25 +274,14 @@ def run_searchlight(
                     der = (imagery_derangements[sl] if imagery_derangements is not None
                            else draw_imagery_derangements(null_seed, b, block_size, n_perms))
                     der_d = to_dev(der[rows], torch.int64)
-            if use_cv and use_null:
-                main, null = searchlight_block_cv_with_null(
-                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
-                    shuffles_d, der_d, null_gather=null_gather, **common, **cv_kw)
-                results.append(main)
-                null_results.append(null)
-            elif use_cv:
-                results.append(searchlight_block_cv(
-                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alphas_d,
-                    **common, **cv_kw))
-            elif use_null:
-                main, null = searchlight_block_with_null(
-                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha,
-                    shuffles_d, der_d, null_gather=null_gather, **common)
-                results.append(main)
-                null_results.append(null)
+            out = step(X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b,
+                       alphas_d if use_cv else alpha,
+                       *((shuffles_d, der_d) if use_null else ()), **step_kw)
+            if use_null:
+                results.append(out[0])
+                null_results.append(out[1])
             else:
-                results.append(searchlight_block(
-                    X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b, alpha, **common))
+                results.append(out)
             # the last block hosts every output still on the device
             if (b + 1) % flush_every == 0 or b == n_blocks - 1:
                 with span("mdt.runner.flush"):

@@ -69,6 +69,43 @@ def test_no_import_of_jax_or_the_jax_package(path):
             assert top not in FORBIDDEN, f"{path}:{node.lineno} imports {top}"
 
 
+def _imported_names(path, package):
+    """Every module (or module.name) that ``path``, a file of the package
+    ``package``, imports, relative imports resolved."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")[:len(package.split(".")) + 1 - node.level]
+            module = ".".join(base + [node.module] if node.level else [node.module])
+            yield from (f"{module}.{a.name}" for a in node.names)
+
+
+def test_ops_and_parallel_import_nothing_of_the_decoding_layer_above_them():
+    """The selection settings a device ships with live in ``ops/precision``:
+    nothing under ``ops/`` imports ``decoding.*``, and ``parallel/`` imports
+    only ``decoding.searchlight_engine``, the block steps it drives."""
+    decoding = f"{port.__name__}.decoding"
+    engine = f"{decoding}.searchlight_engine"
+    pkg = os.path.dirname(port.__file__)
+    upward, engine_users = [], set()
+    for layer in ("ops", "parallel"):
+        for base, _, files in os.walk(os.path.join(pkg, layer)):
+            rel = os.path.relpath(base, os.path.dirname(pkg)).replace(os.sep, ".")
+            for f in (f for f in files if f.endswith(".py")):
+                for name in _imported_names(os.path.join(base, f), rel):
+                    if not (name == decoding or name.startswith(decoding + ".")):
+                        continue
+                    if layer == "parallel" and name.startswith(engine + "."):
+                        engine_users.add(f)
+                    else:
+                        upward.append(f"{layer}/{f} imports {name}")
+    assert upward == []
+    assert engine_users == {"searchlight_runner.py", "distributed.py"}
+
+
 def test_port_and_chip_smoke_import_with_jax_blocked():
     """Import everything with ``jax`` and the JAX package made unimportable."""
     code = "\n".join([

@@ -363,8 +363,9 @@ def test_tri_lower_inverse_blocked():
 
 def test_cv_alpha_batch_and_unroll_parity():
     """tests/test_searchlight.py:415-431 on the port: the chunked alpha-batched
-    inverse and the "unrolled" sweep give the per-alpha sweep's alphas and
-    scores exactly, and those are the JAX package's."""
+    inverse gives the per-alpha sweep's alphas and scores exactly, and those
+    are the JAX package's (the JAX package's unrolled sweep is the port's
+    plain one: ROADMAP standing entry 17)."""
     rng = np.random.RandomState(0)
     n, k, d, v = 60, 8, 6, 12
     Ytr = rng.randn(n, d).astype(np.float32)
@@ -374,8 +375,7 @@ def test_cv_alpha_batch_and_unroll_parity():
     patches = TE.gather_patches(torch.as_tensor(Xtr), torch.as_tensor(adj))
     Y, al = torch.as_tensor(Ytr), torch.as_tensor(alphas)
     _, b0, s0 = TE.fit_block_cv(patches, Y, al, 3, cv_solver="schur-cb")
-    for kw in ({"cv_alpha_batch": 2}, {"cv_alpha_batch": 4}, {"cv_alpha_batch": True},
-               {"cv_unroll": True}):
+    for kw in ({"cv_alpha_batch": 2}, {"cv_alpha_batch": 4}, {"cv_alpha_batch": True}):
         _, b1, s1 = TE.fit_block_cv(patches, Y, al, 3, cv_solver="schur-cb", **kw)
         assert torch.equal(b0, b1), kw
         assert torch.equal(s0, s1), kw

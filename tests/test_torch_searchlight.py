@@ -378,7 +378,17 @@ def test_unported_run_options_raise(dataset, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="stream_ingest"):
         TS.run(TS.SearchlightConfig(**base))
     assert TS.default_cv_solver("cpu") == "schur-cb"
-    assert TS.default_cv_dtype() is None and TS.default_null_gather() == "gather"
+    assert TS.default_cv_dtype() is None
+    # the runner's null gather where none is named: the plain gather
+    from multimodal_decoding_tpu_torch.parallel import searchlight_runner as TR
+
+    gathers, step = [], TR.searchlight_block_with_null
+    monkeypatch.setattr(TR, "searchlight_block_with_null",
+                        lambda *a, **k: gathers.append(k["null_gather"]) or step(*a, **k))
+    prob, p = _runner_problem()
+    torch_run_searchlight(**prob, shuffles=p["shuffles"], block_size=8, device="cpu",
+                          progress=False, null_gather=None)
+    assert gathers and set(gathers) == {"gather"}
 
 
 @pytest.mark.parametrize("n_rows,k,block,n_perms", [(8335, 750, 128, 100), (40, 5, 8, None),

@@ -342,8 +342,7 @@ def test_unported_options_raise(problem):
     package rejects too."""
     t = _torch_inputs(problem)
     X = TE.gather_patches(t["X_all"], t["idx"])[:N_TRAIN]
-    for kw in ({"cv_dtype": torch.bfloat16}, {"cv_unroll": True},
-               {"cv_alpha_batch": True}):
+    for kw in ({"cv_dtype": torch.bfloat16}, {"cv_alpha_batch": True}):
         _, best, scores = TE.fit_block_cv(X, t["Y_train"], t["alphas"], **kw)
         assert best.shape == (B,) and scores.shape == (B, len(ALPHAS))
     with pytest.raises(ValueError, match="must divide"):

@@ -132,9 +132,13 @@ def _searchlight_inputs(seed=0):
 
 
 def _run_searchlight(mode, device="cpu", block_size=8):
-    cv = dict(alphas_cv=[0.1, 1.0, 10.0]) if mode == "cv" else dict(alpha=1.0)
-    return run_searchlight(**_searchlight_inputs(), **cv, block_size=block_size,
-                           device=device, progress=False)
+    """``mode``: "cv" or "fixed", with nulls; "cv-no-null" or "fixed-no-null"
+    without (``shuffles=None``)."""
+    kw = _searchlight_inputs()
+    if mode.endswith("-no-null"):
+        kw["shuffles"] = None
+    cv = dict(alphas_cv=[0.1, 1.0, 10.0]) if mode.startswith("cv") else dict(alpha=1.0)
+    return run_searchlight(**kw, **cv, block_size=block_size, device=device, progress=False)
 
 
 def _assert_equal_outputs(a, b):
@@ -143,15 +147,18 @@ def _assert_equal_outputs(a, b):
         np.testing.assert_array_equal(a[k], b[k])
 
 
-@pytest.mark.parametrize("mode", ["cv", "fixed"])
+@pytest.mark.parametrize("mode", ["cv", "fixed", "cv-no-null", "fixed-no-null"])
 def test_searchlight_is_bit_equal_with_spans_on(mode):
     off_scores, off_aux = _run_searchlight(mode)
     assert P.summary()["spans"] == {}
     with _cpu_profile():
         on_scores, on_aux = _run_searchlight(mode)
     _assert_equal_outputs(off_scores, on_scores)
-    _assert_equal_outputs(off_aux["null_scores"], on_aux["null_scores"])
-    if mode == "cv":
+    if mode.endswith("-no-null"):
+        assert "null_scores" not in on_aux
+    else:
+        _assert_equal_outputs(off_aux["null_scores"], on_aux["null_scores"])
+    if mode.startswith("cv"):
         np.testing.assert_array_equal(off_aux["best_alpha"], on_aux["best_alpha"])
 
     spans = P.summary()["spans"]
@@ -161,8 +168,8 @@ def test_searchlight_is_bit_equal_with_spans_on(mode):
                  "mdt.engine.gather", "mdt.engine.fit", "mdt.engine.solve",
                  "mdt.engine.score"):
         assert spans[name]["count"] == n_blocks, name
-    assert spans.get("mdt.engine.select", {}).get("count", 0) == (n_blocks if mode == "cv"
-                                                                  else 0)
+    assert spans.get("mdt.engine.select", {}).get("count", 0) == (
+        n_blocks if mode.startswith("cv") else 0)
     # the last block hosts every output still on the device
     assert spans["mdt.runner.flush"]["count"] == 1
     block, step = spans["mdt.runner.block"], spans["mdt.engine.step"]
