@@ -328,8 +328,33 @@ class TestLayout:
 N_NULL_METRICS = 6
 
 
-def _sel(layout_sel, device) -> torch.Tensor:
-    return torch.as_tensor(layout_sel, dtype=torch.long, device=device)
+@dataclass(frozen=True)
+class ScoreConstants:
+    """The score family's index tensors on its device: the caption and
+    image rows of the test set, the two imagery derangements [2, 3] and,
+    with nulls, the shuffles restricted to each modality's rows as local
+    indices [P, n].  None of them depends on a block, so a run builds them
+    once (``score_constants``) and hands them to every block step."""
+
+    caption: torch.Tensor
+    image: torch.Tensor
+    derangements: torch.Tensor
+    local_caption: torch.Tensor | None = None
+    local_image: torch.Tensor | None = None
+
+
+def score_constants(layout: TestLayout, device, shuffles: torch.Tensor | None = None
+                    ) -> ScoreConstants:
+    """``layout``'s selectors, the derangement table and, given the [P,
+    n_test] ``shuffles`` (on ``device``), each modality's local shuffles."""
+    cap, img = (torch.as_tensor(sel, dtype=torch.long, device=device)
+                for sel in (layout.caption_sel, layout.image_sel))
+    der = torch.as_tensor(_DERANGEMENTS, dtype=torch.long, device=device)
+    if shuffles is None:
+        return ScoreConstants(cap, img, der)
+    n_test = shuffles.shape[-1]
+    return ScoreConstants(cap, img, der, _local_shuffles(shuffles, cap, n_test),
+                          _local_shuffles(shuffles, img, n_test))
 
 
 def _rank_counts(dist: torch.Tensor) -> torch.Tensor:
@@ -369,13 +394,6 @@ def _gather_perm_diag(C: torch.Tensor, perm: torch.Tensor,
     return C[b_idx, i_idx, perm]
 
 
-def _derangement_idx(imagery_derangements: torch.Tensor) -> torch.Tensor:
-    """[B, P] choice of one of the two 3-element derangements -> [B, P, 3]."""
-    der = torch.as_tensor(_DERANGEMENTS, dtype=torch.long,
-                          device=imagery_derangements.device)
-    return der[imagery_derangements.long()]
-
-
 def _local_shuffles(shuffles: torch.Tensor, sel: torch.Tensor, n_test: int) -> torch.Tensor:
     """Shuffles [P, n_test] restricted to the rows ``sel`` as local indices [P, n]."""
     inv = torch.zeros((n_test,), dtype=torch.long, device=shuffles.device)
@@ -384,7 +402,8 @@ def _local_shuffles(shuffles: torch.Tensor, sel: torch.Tensor, n_test: int) -> t
 
 
 def _score_families(preds_test, preds_imag, Y_test, Y_imag, layout: TestLayout,
-                    comp_cross: bool = True, null=None) -> tuple:
+                    comp_cross: bool = True, null=None, constants: ScoreConstants | None = None
+                    ) -> tuple:
     """The main score family and, with ``null = (shuffles,
     imagery_derangements, null_gather)``, the null family -> ``(main, null
     or None)``.
@@ -394,6 +413,10 @@ def _score_families(preds_test, preds_imag, Y_test, Y_imag, layout: TestLayout,
     gather), so one C serves both outputs; without, it is
     ``M.pairwise_acc_from_dist``, the same comparisons without C.  Keys:
     main in ``score_block``'s order, null in ``null_score_block``'s.
+
+    ``constants``: ``score_constants(layout, device, shuffles)``, built by
+    the caller once for many blocks; None builds them here.  Built once,
+    they leave the family no host-to-device copy.
     """
     if null is not None:
         shuffles, imagery_derangements, null_gather = null
@@ -401,15 +424,19 @@ def _score_families(preds_test, preds_imag, Y_test, Y_imag, layout: TestLayout,
             raise ValueError(
                 "null scoring uses the reference's 3-element imagery derangements "
                 f"(searchlight.py:35); got {preds_imag.shape[-2]} imagery stimuli")
-    device = preds_test.device
-    cap = _sel(layout.caption_sel, device)
-    img = _sel(layout.image_sel, device)
-    der_idx = None if null is None else _derangement_idx(imagery_derangements)
+    if constants is None:
+        constants = score_constants(layout, preds_test.device,
+                                    None if null is None else shuffles)
+    elif null is not None and constants.local_caption is None:
+        raise ValueError("null scoring needs constants built with the shuffles")
+    cap, img = constants.caption, constants.image
+    # [B, P] choices of one of the two 3-element derangements -> [B, P, 3]
+    der_idx = None if null is None else constants.derangements[imagery_derangements.long()]
     main, nulls = {}, None if null is None else {}
 
     def family(name, P, L, perm=None):
         """``name``'s main accuracy of P against L, and its nulls where
-        ``perm`` (called after the main accuracy) gives the permuted columns."""
+        ``perm`` gives the permuted columns."""
         dist = M.cosine_distances(P, L)
         if nulls is None or perm is None:
             main[name] = M.pairwise_acc_from_dist(dist)
@@ -419,24 +446,21 @@ def _score_families(preds_test, preds_imag, Y_test, Y_imag, layout: TestLayout,
         diag = torch.diagonal(C, dim1=-2, dim2=-1)
         main[name] = M.count_ratio(torch.sum(diag, dim=-1), n * m - min(n, m))
         nulls[name] = M.count_ratio(
-            torch.sum(_gather_perm_diag(C, perm(), null_gather), dim=-1), n * m - n)
-
-    def local(sel):
-        return lambda: _local_shuffles(shuffles, sel, Y_test.shape[0])
+            torch.sum(_gather_perm_diag(C, perm, null_gather), dim=-1), n * m - n)
 
     P_cap = M.standardize(preds_test[:, cap, :])
     P_img = M.standardize(preds_test[:, img, :])
     L_cap = Y_test[cap]
     L_img = Y_test[img]
-    family(M.ACC_CAPTIONS, P_cap, L_cap, local(cap))
-    family(M.ACC_IMAGES, P_img, L_img, local(img))
+    family(M.ACC_CAPTIONS, P_cap, L_cap, constants.local_caption)
+    family(M.ACC_IMAGES, P_img, L_img, constants.local_image)
     if comp_cross:
         family(M.ACC_CROSS_CAPTIONS_TO_IMAGES, P_cap, L_img)
         family(M.ACC_CROSS_IMAGES_TO_CAPTIONS, P_img, L_cap)
     L_whole = torch.cat((Y_imag, Y_test), dim=0)
     for suffix, P_im in (("", M.standardize(preds_imag)), ("_no_std", preds_imag)):
-        family(M.ACC_IMAGERY + suffix, P_im, Y_imag, lambda: der_idx)
-        family(M.ACC_IMAGERY_WHOLE_TEST + suffix, P_im, L_whole, lambda: der_idx)
+        family(M.ACC_IMAGERY + suffix, P_im, Y_imag, der_idx)
+        family(M.ACC_IMAGERY_WHOLE_TEST + suffix, P_im, L_whole, der_idx)
     return main, nulls
 
 
@@ -507,14 +531,16 @@ def _split_patches(X_all, idx, mask, n_train, n_test):
 
 
 def _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, null, *, layout, n_train,
-                n_test, comp_cross, precision, solver, cv=None):
+                n_test, comp_cross, precision, solver, cv=None, constants=None):
     """The block step behind the four public ones: gather -> fit -> predict
     -> score, inside ``mdt.engine.step``.
 
     ``alpha`` is the fixed alpha, or with ``cv`` (``fit_block_cv``'s
     selection arguments) the CV grid; ``null`` is ``(shuffles,
-    imagery_derangements, null_gather)`` or None.  Returns ``(main, null or
-    None)``, with ``best_alpha`` among the main maps under CV.
+    imagery_derangements, null_gather)`` or None; ``constants`` the
+    score's (``score_constants``), or None to build them in the step.
+    Returns ``(main, null or None)``, with ``best_alpha`` among the main
+    maps under CV.
     """
     with span("mdt.engine.step"):
         Xtr, Xte, Xim = _split_patches(X_all, idx, mask, n_train, n_test)
@@ -526,7 +552,7 @@ def _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, null, *, layou
         with span("mdt.engine.score"):
             main, nulls = _score_families(predict_block(Xte, W, precision),
                                           predict_block(Xim, W, precision), Y_test, Y_imag,
-                                          layout, comp_cross, null)
+                                          layout, comp_cross, null, constants)
     if cv is not None:
         main["best_alpha"] = best_alpha
     return main, nulls
@@ -535,27 +561,30 @@ def _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, null, *, layou
 def searchlight_block(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, *,
                       layout: TestLayout, n_train: int, n_test: int,
                       comp_cross: bool = True, precision="highest",
-                      solver: str = "cholesky"):
+                      solver: str = "cholesky", constants: ScoreConstants | None = None):
     """One block step: gather -> fit -> predict -> score.  Returns {metric: [B]}.
 
     X_all [N_all, V] = concat(train, test, imagery) rows (float32, or bf16
-    storage under fast math); idx [B, K]; mask [B, K] or None.
+    storage under fast math); idx [B, K]; mask [B, K] or None.  Every step
+    takes ``constants``, the score's ``score_constants`` for ``layout`` (and
+    the shuffles), which a caller running many blocks builds once.
     """
     return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha, None, layout=layout,
                        n_train=n_train, n_test=n_test, comp_cross=comp_cross,
-                       precision=precision, solver=solver)[0]
+                       precision=precision, solver=solver, constants=constants)[0]
 
 
 def searchlight_block_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
                                 shuffles, imagery_derangements, *,
                                 layout: TestLayout, n_train: int, n_test: int,
                                 comp_cross: bool = True, precision="highest",
-                                solver: str = "cholesky", null_gather: str = "gather"):
+                                solver: str = "cholesky", null_gather: str = "gather",
+                                constants: ScoreConstants | None = None):
     """Block step that also emits the per-shuffle null score family."""
     return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alpha,
                        (shuffles, imagery_derangements, null_gather), layout=layout,
                        n_train=n_train, n_test=n_test, comp_cross=comp_cross,
-                       precision=precision, solver=solver)
+                       precision=precision, solver=solver, constants=constants)
 
 
 def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas,
@@ -566,7 +595,8 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
                                    cv_precision=None, cv_solver: str | None = None,
                                    cv_scorer: str = "xla", cv_dtype=None,
                                    cv_alpha_batch: bool = False,
-                                   null_gather: str = "gather"):
+                                   null_gather: str = "gather",
+                                   constants: ScoreConstants | None = None):
     """CV block step that also emits the per-shuffle null score family.
 
     The main path: each vertex's null scores come from the decoder refit at
@@ -577,7 +607,8 @@ def searchlight_block_cv_with_null(X_all, Y_train, Y_test, Y_imag, idx, mask, al
     return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas,
                        (shuffles, imagery_derangements, null_gather), layout=layout,
                        n_train=n_train, n_test=n_test, comp_cross=comp_cross,
-                       precision=precision, solver=solver, cv=cv)
+                       precision=precision, solver=solver, cv=cv,
+                       constants=constants)
 
 
 def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
@@ -586,10 +617,12 @@ def searchlight_block_cv(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, *,
                          precision="highest", solver: str = "cholesky",
                          cv_precision=None, cv_solver: str | None = None,
                          cv_scorer: str = "xla", cv_dtype=None,
-                         cv_alpha_batch: bool = False):
+                         cv_alpha_batch: bool = False,
+                         constants: ScoreConstants | None = None):
     """Block step with per-vertex CV alpha selection."""
     cv = dict(n_splits=n_splits, cv_precision=cv_precision, cv_solver=cv_solver,
               cv_scorer=cv_scorer, cv_dtype=cv_dtype, cv_alpha_batch=cv_alpha_batch)
     return _block_step(X_all, Y_train, Y_test, Y_imag, idx, mask, alphas, None, layout=layout,
                        n_train=n_train, n_test=n_test, comp_cross=comp_cross,
-                       precision=precision, solver=solver, cv=cv)[0]
+                       precision=precision, solver=solver, cv=cv,
+                       constants=constants)[0]

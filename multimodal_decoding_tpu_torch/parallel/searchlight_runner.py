@@ -17,6 +17,14 @@ computed in numpy (``utils/threefry.py``) for the whole block before a rank
 takes its rows, so the nulls do not depend on the world size and both
 packages write the same null scores for the same ``null_seed``.
 ``imagery_derangements`` (one row per padded vertex) overrides the draw.
+
+Between two flushes the host never waits for the card to drain.  On CUDA a
+block's indices, mask and derangements go up through a ring of pinned host
+buffers with non-blocking copies (``_StagedUploads``: one
+``mdt.runner.staged_upload`` a block), the next block's while this one
+runs; the score's index constants are built once a call
+(``score_constants``); and a flush brings the pending blocks' maps back in
+one copy (``_materialize_pending``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from multimodal_decoding_tpu_torch.decoding.searchlight_engine import (
     N_NULL_METRICS,
     TestLayout,
+    score_constants,
     searchlight_block,
     searchlight_block_cv,
     searchlight_block_cv_with_null,
@@ -39,7 +48,7 @@ from multimodal_decoding_tpu_torch.device import resolve_device, synchronize
 from multimodal_decoding_tpu_torch.parallel.mesh import barrier, is_writer, pad_to_multiple
 from multimodal_decoding_tpu_torch.parallel.multihost import host_numpy, host_shard_bounds
 from multimodal_decoding_tpu_torch.utils import threefry
-from multimodal_decoding_tpu_torch.utils.profiling import span
+from multimodal_decoding_tpu_torch.utils.profiling import count, span
 
 
 def _auto_block_size(n_rows: int, k: int, n_devices: int = 1,
@@ -76,14 +85,77 @@ def _materialize_pending(lists: list[list], n_hosted: int, mesh=None) -> int:
 
     ``lists`` are parallel per-block result lists (main, null); entries at
     index >= n_hosted are device dicts of this rank's rows.  Returns the new
-    hosted count.  With a mesh each copy is an all_gather of the block's
-    rows, so every rank must reach these calls in the same order.
+    hosted count.  Without a mesh every pending map comes back in one copy
+    (``_host_in_one_copy``).  With a mesh each map is an all_gather of the
+    block's rows, so every rank must reach these calls in the same order.
     """
     n = max((len(lst) for lst in lists), default=0)
-    for lst in lists:
-        for i in range(min(n_hosted, len(lst)), len(lst)):
+    pending = [(lst, i) for lst in lists for i in range(min(n_hosted, len(lst)), len(lst))]
+    if mesh is not None:
+        for lst, i in pending:
             lst[i] = {k: host_numpy(v, mesh) for k, v in lst[i].items()}
+        return n
+    hosted = iter(_host_in_one_copy([v for lst, i in pending for v in lst[i].values()
+                                     if isinstance(v, torch.Tensor)]))
+    for lst, i in pending:
+        lst[i] = {k: next(hosted) if isinstance(v, torch.Tensor) else v
+                  for k, v in lst[i].items()}
     return n
+
+
+def _host_in_one_copy(tensors: list) -> list:
+    """Tensors of one device -> numpy arrays of the same bits, through one
+    device-to-host copy: their bytes laid end to end in one device buffer,
+    cut apart again on the host."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[at:at + nbytes].view(dtype).reshape(t.shape))
+        at += nbytes
+    return out
+
+
+class _StagedUploads:
+    """A block's host arrays -> tensors on ``device``, the same dtypes.
+
+    On CUDA the arrays are copied into one slot of a ring of ``SLOTS``
+    pinned host buffers, allocated at the first block (``cudaHostAlloc``
+    waits for the device, so never inside the loop), and sent with
+    non-blocking copies on the current stream; an event recorded behind
+    them guards the slot, which the host refills only once that event has
+    passed.  The host so runs at most ``SLOTS`` blocks ahead of the card and
+    never waits for it to drain.  Each block so sent counts one
+    ``mdt.runner.staged_upload``.  On the CPU the arrays become tensors as
+    they are.
+    """
+
+    SLOTS = 3
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ring = None  # per slot: (pinned buffers, the event behind their copies)
+        self.sent = 0
+
+    def __call__(self, arrays: list) -> list:
+        if self.device.type != "cuda":
+            return [torch.as_tensor(a) for a in arrays]
+        if self.ring is None:
+            self.ring = [([torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                                       pin_memory=True) for a in arrays], torch.cuda.Event())
+                         for _ in range(self.SLOTS)]
+        bufs, done = self.ring[self.sent % self.SLOTS]
+        done.synchronize()  # the slot's last copies have left it
+        for buf, a in zip(bufs, arrays, strict=True):
+            np.copyto(buf.numpy(), a)
+        out = [buf.to(self.device, non_blocking=True) for buf in bufs]
+        done.record(torch.cuda.current_stream(self.device))
+        self.sent += 1
+        count("mdt.runner.staged_upload", 1)
+        return out
 
 
 def draw_imagery_derangements(null_seed: int, block: int, block_size: int,
@@ -260,23 +332,38 @@ def run_searchlight(
                        cv_dtype=cv_dtype)
     if use_null:
         step_kw["null_gather"] = "gather" if null_gather is None else null_gather
-    t0 = time.perf_counter()
-    for b in range(n_blocks):
-        if b <= ckpt_done:
-            continue
-        with span("mdt.runner.block"):
+    # the score's index constants, once a call
+    step_kw["constants"] = score_constants(layout, device, shuffles_d if use_null else None)
+    uploads = _StagedUploads(device)
+
+    def upload(b):
+        """Block ``b``'s rows of the indices, mask and derangements on the
+        device, the casts made there."""
+        with span("mdt.runner.upload"):
             sl = slice(b * block_size, (b + 1) * block_size)
-            with span("mdt.runner.upload"):
-                idx_b = to_dev(idx_padded[sl][rows], torch.int64)
-                mask_b = (to_dev(mask_padded[sl][rows], torch.bool)
-                          if mask_padded is not None else None)
-                if use_null:
-                    der = (imagery_derangements[sl] if imagery_derangements is not None
-                           else draw_imagery_derangements(null_seed, b, block_size, n_perms))
-                    der_d = to_dev(der[rows], torch.int64)
+            arrays = [idx_padded[sl][rows]]
+            if mask_padded is not None:
+                arrays.append(mask_padded[sl][rows])
+            if use_null:
+                der = (imagery_derangements[sl] if imagery_derangements is not None
+                       else draw_imagery_derangements(null_seed, b, block_size, n_perms))
+                arrays.append(der[rows])
+            sent = uploads(arrays)
+            return (sent[0].to(torch.int64),
+                    sent[1].to(torch.bool) if mask_padded is not None else None,
+                    sent[-1].to(torch.int64) if use_null else None)
+
+    t0 = time.perf_counter()
+    staged = None
+    for b in range(ckpt_done + 1, n_blocks):
+        with span("mdt.runner.block"):
+            idx_b, mask_b, der_d = staged if staged is not None else upload(b)
             out = step(X_all_d, Y_train_d, Y_test_d, Y_imag_d, idx_b, mask_b,
                        alphas_d if use_cv else alpha,
                        *((shuffles_d, der_d) if use_null else ()), **step_kw)
+            # the next block's inputs (its derangements drawn here) go up
+            # while this one runs on the card
+            staged = upload(b + 1) if b + 1 < n_blocks else None
             if use_null:
                 results.append(out[0])
                 null_results.append(out[1])
