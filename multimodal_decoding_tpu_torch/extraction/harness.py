@@ -7,6 +7,13 @@ implementable with torch forwards on the GPU (extractors.py, imagebind.py) or
 classic filterbanks (gabor.py).  The output pickle schema
 ``{stim_id: {feature_key: float32 vector}}`` is the data-layer contract
 (data.py:401-445 reads it).
+
+Spans and counters (``utils/profiling``, on only under ``torch.profiler``):
+``mdt.extract.load`` (a batch's image loads, run by the generator, so a
+sibling of the batch), ``mdt.extract.batch`` (one loop iteration: the
+extract_fn and the dict fill), ``mdt.extract.save`` (the pickle write);
+counters ``mdt.extract.stimuli`` (a batch's stimuli) and
+``mdt.extract.decoded_pixels`` (each loaded image's source width x height).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable
 import numpy as np
 
 from multimodal_decoding_tpu_torch import config
+from multimodal_decoding_tpu_torch.utils.profiling import count, span
 
 
 @dataclass
@@ -68,7 +76,9 @@ class StimuliDataset:
             if mode == "caption":
                 yield chunk, caps, None
             else:
-                imgs = [self.load_image(i) for i in chunk]
+                with span("mdt.extract.load"):
+                    imgs = [self.load_image(i) for i in chunk]
+                    count("mdt.extract.decoded_pixels", sum(im.width * im.height for im in imgs))
                 yield chunk, (caps if mode == "both" else None), imgs
 
 
@@ -87,18 +97,21 @@ def run_extraction(
     all_feats: dict = {}
     n_batches = (len(dataset) + batch_size - 1) // batch_size
     for b, (ids, captions, images) in enumerate(dataset.batches(batch_size, mode)):
-        feats_batch = extract_fn(ids, captions, images)
-        for key, feats in feats_batch.items():
-            feats = np.asarray(feats, dtype=np.float32)
-            for i, stim_id in enumerate(ids):
-                all_feats.setdefault(int(stim_id), {})[key] = feats[i]
+        with span("mdt.extract.batch"):
+            count("mdt.extract.stimuli", len(ids))
+            feats_batch = extract_fn(ids, captions, images)
+            for key, feats in feats_batch.items():
+                feats = np.asarray(feats, dtype=np.float32)
+                for i, stim_id in enumerate(ids):
+                    all_feats.setdefault(int(stim_id), {})[key] = feats[i]
         if progress:
             print(f"extraction batch {b + 1}/{n_batches}", flush=True)
 
     out_path = out_path or config.model_features_file_path(model_name)
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    with open(out_path, "wb") as f:
-        pickle.dump(all_feats, f, protocol=pickle.HIGHEST_PROTOCOL)
+    with span("mdt.extract.save"):
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        with open(out_path, "wb") as f:
+            pickle.dump(all_feats, f, protocol=pickle.HIGHEST_PROTOCOL)
     return all_feats
 
 

@@ -38,6 +38,7 @@ from torch import nn
 
 from multimodal_decoding_tpu_torch.device import resolve_device
 from multimodal_decoding_tpu_torch.utils import threefry
+from multimodal_decoding_tpu_torch.utils.profiling import count, span
 
 # CLIP BPE special tokens (ImageBind SimpleTokenizer): EOS has the highest
 # id, which is what makes the argmax EOS selection correct.
@@ -237,8 +238,19 @@ def text_forward(params: ImageBind, cfg: ImageBindConfig, input_ids) -> torch.Te
 
 
 def imagebind_embed(params: ImageBind, cfg: ImageBindConfig, input_ids, pixel_values):
-    """Both branches: (text embeds, vision embeds)."""
-    return text_forward(params, cfg, input_ids), vision_forward(params, cfg, pixel_values)
+    """Both branches: (text embeds, vision embeds).
+
+    Both inputs are copied to the device before either tower is queued, and
+    the vision tower goes first.  A blocking copy of host pixels between the
+    towers would hold the host until the text tower had drained; queued
+    after the vision tower, the text tower's short kernels launch while the
+    device is still busy.
+    """
+    device = params.vision.patch_w.device
+    pixel_values = torch.as_tensor(pixel_values, device=device)
+    input_ids = torch.as_tensor(input_ids, device=device)
+    vision = vision_forward(params, cfg, pixel_values)
+    return text_forward(params, cfg, input_ids), vision
 
 
 # ---------------------------------------------------------------------------
@@ -492,8 +504,17 @@ def fake_torch_state_dict(cfg: ImageBindConfig, seed: int = 0) -> dict:
 
 
 def preprocess_images(images, cfg: ImageBindConfig) -> np.ndarray:
-    """load_and_transform_vision_data: resize-short-side 224 (bicubic) ->
-    center crop -> CLIP normalize -> [B, 3, S, S] float32 (host, PIL)."""
+    """ImageBind's ``load_and_transform_vision_data`` -> [B, 3, S, S] float32
+    (host, PIL).
+
+    torchvision's ``Resize(S, BICUBIC)`` on the PIL image: the short side to
+    S, the long side to ``int(S * long / short)``; ``CenterCrop(S)`` at the
+    offset ``int(round((size - S) / 2.0))`` on each axis; ``ToTensor`` (/ 255)
+    and CLIP's ``Normalize`` (mean and std in float64, rounded once).  A
+    divergence by design from the JAX package, which rounds the long side
+    and crops at ``(size - S) // 2``: at COCO's 640 x 480 it resizes to
+    299 x 224 where the published transform takes 298 x 224.
+    """
     from PIL import Image
 
     s = cfg.image_size
@@ -506,10 +527,10 @@ def preprocess_images(images, cfg: ImageBindConfig) -> np.ndarray:
             img = Image.fromarray(arr)
         img = img.convert("RGB")
         w, h = img.size
-        scale = s / min(w, h)
-        img = img.resize((round(w * scale), round(h * scale)), Image.BICUBIC)
+        long = int(s * max(w, h) / min(w, h))
+        img = img.resize((s, long) if w <= h else (long, s), Image.BICUBIC)
         w, h = img.size
-        left, top = (w - s) // 2, (h - s) // 2
+        left, top = int(round((w - s) / 2.0)), int(round((h - s) / 2.0))
         img = img.crop((left, top, left + s, top + s))
         x = np.asarray(img, np.float32) / 255.0
         out[i] = ((x - IMAGE_MEAN) / IMAGE_STD).transpose(2, 0, 1)
@@ -522,7 +543,8 @@ def clip_tokenize(captions, cfg: ImageBindConfig, tokenizer=None) -> np.ndarray:
     The BPE vocabulary is data that cannot be synthesised: by default this
     uses the HF CLIP tokenizer (same merges as ImageBind's SimpleTokenizer)
     from the local cache; pass ``tokenizer`` (captions -> list[list[int]] of
-    ids WITHOUT specials) to substitute any implementation.
+    ids WITHOUT specials) to substitute any implementation.  Counter
+    ``mdt.extract.text_tokens``: the ids before padding, SOT and EOT included.
     """
     if tokenizer is None:
         from transformers import CLIPTokenizer
@@ -533,9 +555,12 @@ def clip_tokenize(captions, cfg: ImageBindConfig, tokenizer=None) -> np.ndarray:
             return tok(list(texts), add_special_tokens=False)["input_ids"]
 
     ids = np.zeros((len(captions), cfg.context_length), np.int32)
+    n_tokens = 0
     for i, toks in enumerate(tokenizer(list(captions))):
         row = [SOT_TOKEN] + list(toks)[: cfg.context_length - 2] + [EOT_TOKEN]
         ids[i, : len(row)] = row
+        n_tokens += len(row)
+    count("mdt.extract.text_tokens", n_tokens)
     return ids
 
 
@@ -545,19 +570,25 @@ def make_imagebind_extractor(params: ImageBind, cfg: ImageBindConfig, tokenizer=
     Mirrors ImagebindFeatureExtractor.extract_features_from_batch
     (extract_imagebind_features.py:20-31): TEXT embeds keep the learned
     logit scaling, VISION embeds are unit-normalized.  Tokens and pixels are
-    made on the host; the forward runs on the modules' device.
+    made on the host; the forward runs on the modules' device.  Spans
+    ``mdt.extract.tokens``, ``.prep``, ``.forward`` (both towers; stream time
+    from the span's events) and ``.to_host`` (the copies back, where the host
+    waits for the towers).
     """
     from multimodal_decoding_tpu_torch.config import LANG_CLS_FEAT_KEY, VISION_CLS_FEAT_KEY
 
     def extract(ids, captions, images):
-        input_ids = clip_tokenize(captions, cfg, tokenizer)
-        pixel_values = preprocess_images(images, cfg)
-        with torch.inference_mode():
+        with span("mdt.extract.tokens"):
+            input_ids = clip_tokenize(captions, cfg, tokenizer)
+        with span("mdt.extract.prep"):
+            pixel_values = preprocess_images(images, cfg)
+        with span("mdt.extract.forward"), torch.inference_mode():
             text_emb, vision_emb = imagebind_embed(params, cfg, input_ids, pixel_values)
-        return {
-            LANG_CLS_FEAT_KEY: text_emb.cpu().numpy(),
-            VISION_CLS_FEAT_KEY: vision_emb.cpu().numpy(),
-        }
+        with span("mdt.extract.to_host"):
+            return {
+                LANG_CLS_FEAT_KEY: text_emb.cpu().numpy(),
+                VISION_CLS_FEAT_KEY: vision_emb.cpu().numpy(),
+            }
 
     return extract
 

@@ -161,15 +161,18 @@ def test_normal_flat_is_a_slice_of_the_draw(start, stop):
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
-def test_random_control_extractor_matches_jax():
+def test_random_control_extractor_matches_jax(monkeypatch):
     """build_imagebind(pretrained=False, seed=7): the schema, a fixed control
     network (same seed -> same weights), features equal to the JAX package's
     random-imagebind on the same images and captions.  The vocabulary is the
-    real one, so SOT/EOT (49406/49407) index real rows."""
+    real one, so SOT/EOT (49406/49407) index real rows.  Both extractors get
+    the port's pixels: at 40 x 32 the JAX package crops one column off the
+    published transform (``test_host_preprocessing_equals_jax``)."""
     from PIL import Image
 
     from multimodal_decoding_tpu_torch.config import LANG_CLS_FEAT_KEY, VISION_CLS_FEAT_KEY
 
+    monkeypatch.setattr(J, "preprocess_images", T.preprocess_images)
     kw = dict(TINY_KW, vocab_size=49408)
     t_cfg, j_cfg = T.ImageBindConfig(**kw), J.ImageBindConfig(**kw)
     params, cfg, extract = T.build_imagebind(pretrained=False, cfg=t_cfg, seed=7,
@@ -204,14 +207,56 @@ def test_out_of_vocabulary_ids_raise_where_jax_clamps(tiny_models):
         _port(T.text_forward, tm, T_TINY, wild)
 
 
-def test_host_preprocessing_equals_jax():
+def _published_pixels(images, size: int) -> np.ndarray:
+    """ImageBind's ``load_and_transform_vision_data`` with PIL: torchvision's
+    ``Resize(size, BICUBIC)`` (short side to ``size``, the long side
+    ``int(size * long / short)``), ``CenterCrop(size)`` (offsets
+    ``int(round((n - size) / 2.0))``), ``ToTensor`` and CLIP's ``Normalize``."""
+    from PIL import Image
+
+    out = []
+    for img in images:
+        w, h = img.size
+        short, long = (w, h) if w <= h else (h, w)
+        new_long = int(size * long / short)
+        new_w, new_h = (size, new_long) if w <= h else (new_long, size)
+        img = img.resize((new_w, new_h), Image.BICUBIC)
+        top, left = int(round((new_h - size) / 2.0)), int(round((new_w - size) / 2.0))
+        x = np.asarray(img.crop((left, top, left + size, top + size)), np.float32) / 255.0
+        x = (x - np.array(T.IMAGE_MEAN)) / np.array(T.IMAGE_STD)
+        out.append(x.astype(np.float32).transpose(2, 0, 1))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("width,height,size,jax_agrees", [
+    (30, 40, 28, True),  # 37.33 -> 37 either way, margin 9: // 2 and round agree
+    (45, 31, 28, False),  # 40.65: 41 against 40
+    (640, 480, 224, False),  # COCO: 299 against 298
+    (480, 640, 224, False),
+    (640, 427, 224, False),  # 336 against 335
+])
+def test_host_preprocessing_equals_jax(width, height, size, jax_agrees):
+    """The port's transform is ImageBind's published one, bit for bit; the
+    JAX package's (a rounded long side, a floored crop offset) is bit-equal
+    to it only where the two arithmetics agree, and differs elsewhere, by
+    design (the JAX package is not edited).  The tokenizer stays the JAX
+    package's."""
     from PIL import Image
 
     rng = np.random.RandomState(5)
-    images = [Image.fromarray(rng.randint(0, 255, (31, 45, 3), dtype=np.uint8)),
-              rng.rand(40, 30, 3)]
-    np.testing.assert_array_equal(T.preprocess_images(images, T_TINY),
-                                  J.preprocess_images(images, J_TINY))
+    t_cfg = T.ImageBindConfig(**dict(TINY_KW, image_size=size))
+    j_cfg = J.ImageBindConfig(**dict(TINY_KW, image_size=size))
+    pil = Image.fromarray(rng.randint(0, 255, (height, width, 3), dtype=np.uint8))
+    unit = rng.rand(height, width, 3)  # a float image in [0, 1], as the extractors take it
+    images = [pil, unit]
+    published = _published_pixels([pil, Image.fromarray((unit * 255).astype(np.uint8))], size)
+    got = T.preprocess_images(images, t_cfg)
+    np.testing.assert_array_equal(got, published)
+    jax_pixels = J.preprocess_images(images, j_cfg)
+    if jax_agrees:
+        np.testing.assert_array_equal(got, jax_pixels)
+    else:
+        assert not np.array_equal(got, jax_pixels)
     caps = ["a b c d e f g h i j k l", "x"]
     np.testing.assert_array_equal(T.clip_tokenize(caps, T_TINY, _stub_tokenizer),
                                   J.clip_tokenize(caps, J_TINY, _stub_tokenizer))

@@ -4,7 +4,9 @@ Off (no ``torch.profiler`` profile recording): one shared no-op context, no
 ``record_function``, no CUDA event, nothing recorded.  On: the spans show in
 the profiler's events with their nesting, and ``summary()`` adds up.  The
 searchlight runner and the whole-brain gram give bit-equal outputs with the
-profiler on and off, and their spans count what they ran.
+profiler on and off, and their spans count what they ran; so does the
+feature-extraction loop (``extraction/harness.run_extraction`` over a tiny
+ImageBind), whose counters equal what its batches held.
 
 This file imports no JAX.  The test marked ``cuda`` runs on a machine with
 a card:
@@ -22,6 +24,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from multimodal_decoding_tpu_torch.decoding.whole_brain import GramCache, decode_single
+from multimodal_decoding_tpu_torch.extraction import imagebind as IB
+from multimodal_decoding_tpu_torch.extraction.harness import StimuliDataset, run_extraction
 from multimodal_decoding_tpu_torch.parallel.searchlight_runner import run_searchlight
 from multimodal_decoding_tpu_torch.utils import profiling as P
 
@@ -226,6 +230,89 @@ def test_gram_and_decode_are_bit_equal_with_spans_on():
 
 
 # ---------------------------------------------------------------------------
+# The extraction loop over a tiny ImageBind
+# ---------------------------------------------------------------------------
+
+IB_TINY = IB.ImageBindConfig(
+    vision_embed_dim=16, vision_layers=2, vision_heads=2, text_embed_dim=12, text_layers=2,
+    text_heads=2, out_embed_dim=8, image_size=28, patch_size=14, n_frames=2,
+    context_length=10, vocab_size=49408)
+# unequal sizes, both orientations; the last caption is cut to the context
+IMAGE_SIZES = [(45, 31), (30, 40), (64, 48), (48, 64), (33, 33)]
+CAPTIONS = ["a dog runs", "blue sky", "x", "two cats on a mat", "a b c d e f g h i j k l"]
+BATCH = 2
+
+
+def _words(texts):
+    return [[(sum(map(ord, w)) % 60) + 1 for w in t.split()] for t in texts]
+
+
+def _extraction_dataset(root) -> StimuliDataset:
+    """JPEGs of ``IMAGE_SIZES`` under ``root``, ids 101, 102, ..."""
+    from PIL import Image
+
+    rng = np.random.RandomState(4)
+    paths = {}
+    for i, (w, h) in enumerate(IMAGE_SIZES):
+        paths[101 + i] = f"{101 + i:012d}.jpg"
+        Image.fromarray(rng.randint(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(root, paths[101 + i]), format="JPEG", quality=90)
+    return StimuliDataset(img_paths=paths, captions=dict(zip(paths, CAPTIONS)), root=str(root))
+
+
+def _extract(dataset, out_path, device="cpu"):
+    params = IB.params_from_torch_state_dict(IB.fake_torch_state_dict(IB_TINY, seed=3),
+                                             IB_TINY, device=device)
+    extract_fn = IB.make_imagebind_extractor(params, IB_TINY, tokenizer=_words)
+    return run_extraction(extract_fn, "imagebind", dataset, batch_size=BATCH,
+                          out_path=str(out_path), progress=False)
+
+
+def test_extraction_is_bit_equal_with_spans_on(tmp_path, monkeypatch):
+    dataset = _extraction_dataset(tmp_path)
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", _fail)
+        off = _extract(dataset, tmp_path / "off.pkl")
+    assert P.summary() == {"spans": {}, "counters": {}}
+    with _cpu_profile():
+        on = _extract(dataset, tmp_path / "on.pkl")
+    assert off.keys() == on.keys()
+    for sid in off:
+        assert off[sid].keys() == on[sid].keys()
+        for key in off[sid]:
+            np.testing.assert_array_equal(off[sid][key], on[sid][key])
+    assert (tmp_path / "off.pkl").read_bytes() == (tmp_path / "on.pkl").read_bytes()
+
+
+def test_extraction_spans_count_nest_and_add_up(tmp_path):
+    dataset = _extraction_dataset(tmp_path)
+    with _cpu_profile() as prof:
+        _extract(dataset, tmp_path / "f.pkl")
+    n_batches = -(-len(IMAGE_SIZES) // BATCH)
+    s = P.summary()
+    spans = s["spans"]
+    inner = ("mdt.extract.tokens", "mdt.extract.prep", "mdt.extract.forward",
+             "mdt.extract.to_host")
+    assert {name: spans[name]["count"] for name in spans} == dict(
+        {name: n_batches for name in ("mdt.extract.load", "mdt.extract.batch") + inner},
+        **{"mdt.extract.save": 1})
+    # the generator loads a batch's images before the loop's body opens the
+    # batch: a sibling; the extractor's stages lie inside the batch
+    events = [e for e in prof.events() if e.name.startswith("mdt.extract.")]
+    for e in events:
+        parent = e.cpu_parent.name if e.cpu_parent is not None else None
+        assert parent == ("mdt.extract.batch" if e.name in inner else None), e.name
+    batch = spans["mdt.extract.batch"]
+    assert batch["host_s"] >= sum(spans[name]["host_s"] for name in inner)
+    assert all(v["stream_s"] is None for v in spans.values())
+
+    tokens = sum(min(len(t), IB_TINY.context_length - 2) + 2 for t in _words(CAPTIONS))
+    assert s["counters"] == {"mdt.extract.stimuli": len(IMAGE_SIZES),
+                             "mdt.extract.decoded_pixels": sum(w * h for w, h in IMAGE_SIZES),
+                             "mdt.extract.text_tokens": tokens}
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -326,3 +413,32 @@ def test_fast_math_counts_its_bf16_products_on_the_card(cuda):
     assert s["spans"]["mdt.engine.fit"]["count"] == aux["n_blocks"]
     assert s["spans"]["mdt.engine.fit"]["stream_s"] > 0
 
+
+@pytest.mark.cuda
+def test_tower_kernels_lie_inside_the_forward_span_on_the_card(cuda, tmp_path):
+    """Every kernel the extraction loop launches is one of the towers', inside
+    ``mdt.extract.forward`` on the host and under its annotation on the
+    device; the span's stream time is read from its events."""
+    dataset = _extraction_dataset(tmp_path)
+    _extract(dataset, tmp_path / "warm.pkl", device=cuda)
+    torch.cuda.synchronize()
+    P.reset()
+    log_dir = str(tmp_path / "trace")
+    with P.device_trace(log_dir):
+        _extract(dataset, tmp_path / "f.pkl", device=cuda)
+        torch.cuda.synchronize()
+    spans = P.summary()["spans"]
+    n_batches = -(-len(IMAGE_SIZES) // BATCH)
+    assert spans["mdt.extract.forward"]["count"] == n_batches
+    assert spans["mdt.extract.forward"]["stream_s"] > 0
+    assert spans["mdt.extract.batch"]["stream_s"] >= spans["mdt.extract.forward"]["stream_s"]
+
+    events = _chrome_events(log_dir)
+    on_device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "gpu_user_annotation" and e["name"] == "mdt.extract.forward"]
+    by_span = _kernels_by_span(events)
+    assert {name for _, _, name in by_span} == {"mdt.extract.forward"}
+    assert len(by_span) == n_batches
+    for kernels in by_span.values():
+        first, last = min(a for a, _ in kernels), max(b for _, b in kernels)
+        assert any(d0 - 1e-3 <= first and last <= d1 + 1e-3 for d0, d1 in on_device)
